@@ -3,14 +3,10 @@
 Round-4 architecture change. The v1 engine (integrators/wavefront.py) runs
 every pass at FULL wavefront width with masked lanes, so its cost is
 (iterations x lane count x pass unit cost) regardless of how many lanes
-actually have work — measured occupancy ~20% on the heterogeneous bench,
-i.e. an ~5x built-in waste with a ~47 Mrays/s roofline. Measured TPU
-primitive costs (scripts/probe_gather4.py) show why per-LANE compaction
-cannot fix it (row gathers cost ~6-9 ns/row at any table size, so a
-full-width gather-back alone costs more than a tracking pass) and what can:
-CONTIGUOUS-BLOCK gathers/scatters are nearly free (128 x 24 KB rows in
-~22/35 us). So v2 makes pass width track the active set at GROUP
-granularity:
+actually have work — low lane occupancy on the heterogeneous bench. The
+premise of v2: per-LANE compaction pays a random row gather per lane,
+while CONTIGUOUS-BLOCK gathers/scatters are cheap. So v2 makes pass width
+track the active set at GROUP granularity:
 
 * Lanes are bound to pixels 1:1 (identity mapping) through a 2-D tile
   swizzle: one GROUP = 512 lanes = one 16x32-pixel tile. Work is spatially
@@ -20,8 +16,7 @@ granularity:
   (sched.cpp:427) with NO idle-worker cost at all.
 * All per-lane state lives in four PACKED arrays (f3/f1/i1/b1), so a
   grouped pass is: select top-K groups by need -> 4 block-row gathers ->
-  run the same pass body at width K*512 -> 4 block-row scatters. Overhead
-  ~0.2-0.3 ms/pass vs 1.46 ms for a full-width event pass.
+  run the same pass body at width K*512 -> 4 block-row scatters.
 * Pass width adapts at runtime through a `lax.cond` ladder (full, 1/2,
   1/8, ... of the groups): every rung is compiled once; each iteration
   executes only the narrowest rung that covers the active-group count.

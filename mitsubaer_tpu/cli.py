@@ -14,7 +14,7 @@ import time
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="mitsubaer_tpu renderer (Mitsuba XML scenes, TPU-native)"
+        description="mitsubaer_tpu renderer (Mitsuba XML scenes)"
     )
     ap.add_argument("scene", help="scene XML file (or preset: cbox | volumetric | refractive)")
     ap.add_argument("-o", "--output", default=None, help="output file (.exr/.png/.npy)")
@@ -40,7 +40,9 @@ def main(argv=None):
 
     from .integrators import render as render_m
     from .scene import presets, xml as xml_m
-    from .utils import io
+    from .utils import io, jaxcache
+
+    jaxcache.enable()
 
     defines = {}
     for d in args.D:

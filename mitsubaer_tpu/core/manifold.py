@@ -2,7 +2,7 @@
 
 The reference solves for chains of specular vertices between two fixed
 endpoints by Newton iteration on the specular constraint manifold, with
-hand-derived derivative blocks. TPU redesign of the core machinery, in
+hand-derived derivative blocks. Array-program redesign of the core machinery, in
 miniature: a batched Newton walk for a single specular vertex (reflection
 or refraction) on an analytic surface (sphere or plane), with the 2x2
 tangent-space Jacobian obtained by forward-mode AD (`jax.jacfwd`) instead
@@ -183,8 +183,11 @@ def solve_specular_chain(kinds, params, a, b, etas, u0,
         # damped pseudo-solve: (J^T J + lam I)^-1 J^T c keeps rank-deficient
         # configurations (grazing chains) from exploding
         JT = jnp.swapaxes(J, -1, -2)
-        A = JT @ J + 1e-9 * jnp.eye(2 * V)
-        g = jnp.einsum("...ij,...j->...i", JT, c)
+        # full f32 products: a GPU may run DEFAULT-precision f32 dots in TF32
+        A = jnp.matmul(JT, J, precision=jax.lax.Precision.HIGHEST) \
+            + 1e-9 * jnp.eye(2 * V)
+        g = jnp.einsum("...ij,...j->...i", JT, c,
+                       precision=jax.lax.Precision.HIGHEST)
         step = jnp.linalg.solve(A, g[..., None])[..., 0]
         # backtracking line search (SpecularManifold::move's step-size
         # control): a raw Newton step overshoots chains whose constraint

@@ -1,6 +1,6 @@
 """Vector/geometry math substrate.
 
-TPU-native analogue of the reference's libcore math layer
+Array-program analogue of the reference's libcore math layer
 (reference: include/mitsuba/core/{vector.h,normal.h,frame.h,util.h}).
 Everything operates on trailing-dim-3 float32 arrays ("structure of arrays"
 over ray batches) so that XLA fuses the whole shading pipeline; there are no
@@ -63,7 +63,7 @@ def coordinate_system(n: jnp.ndarray):
 
     Branchless Duff et al. / Frisvad construction (the reference uses
     coordinateSystem() in mitsuba/core/util.cpp; this variant is
-    select-friendly for SIMD/VPU execution).
+    select-friendly for SIMD execution).
     Returns (s, t) with s x t = n for right-handed frames.
     """
     z = n[..., 2]

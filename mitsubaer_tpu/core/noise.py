@@ -2,11 +2,10 @@
 Perlin's improved noise with the classic 256-entry permutation, plus
 fBm and turbulence used by procedural textures).
 
-TPU-native: the permutation table is folded into a HASH (the table is a
-fixed pseudorandom permutation; a counter-hash of the lattice corner
+The permutation table is folded into a HASH (the table is a fixed
+pseudorandom permutation; a counter-hash of the lattice corner
 coordinates gives the same statistical construction without 512-entry
-gathers, which cost ~9 ns/row on TPU — branchless VPU arithmetic
-instead). Gradients are the 12 edge vectors of Perlin 2002 selected by
+gathers — branchless elementwise arithmetic instead). Gradients are the 12 edge vectors of Perlin 2002 selected by
 the corner hash; the fade curve is the standard quintic
 6t^5 - 15t^4 + 10t^3. Values are in [-1, 1] with perlin(0) = 0 at
 lattice points, exactly like the reference.

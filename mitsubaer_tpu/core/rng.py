@@ -1,7 +1,7 @@
 """Counter-based samplers (reference: src/samplers/{independent,ldsampler,
 stratified,sobol}.cpp + libcore/random.cpp SFMT).
 
-TPU-native redesign: instead of stateful per-thread SFMT streams we use
+Array-program redesign: instead of stateful per-thread SFMT streams we use
 *stateless counter-based* hashing — every (seed, pixel, sample_index,
 dimension) tuple deterministically produces a float. This makes wavefront
 rendering order-independent, replayable, and trivially shardable across a
@@ -15,7 +15,7 @@ Two modes:
     Larcher-Pillichshammer points; same stratification guarantees per pair).
 
 The Sampler is a tiny pytree (lane ids + dimension counter); drawing numbers
-returns (value, new_sampler). All ops are uint32 VPU arithmetic.
+returns (value, new_sampler). All ops are uint32 elementwise arithmetic.
 """
 from __future__ import annotations
 

@@ -1,14 +1,12 @@
-"""Small-table lookups without TPU gathers.
+"""Small-table lookups without gathers.
 
-XLA lowers `jnp.take` rows to a hardware gather that is ISSUE-RATE bound
-(~400M rows/s on v5e regardless of row width or table size), so fetching
-per-lane parameters from a 2-entry media table costs as much as a random
-128-float row gather. For the tiny tables a scene carries (media, BSDFs,
-emitters, shapes — all O(1..16) rows) an unrolled select chain is 10-15x
-faster (measured: (8,3)-table take 0.73ms vs select chain 0.051ms at 262k
-lanes). This mirrors how the reference keeps per-plugin parameters in
-pointer-chased objects: the TPU equivalent of "cheap field access" is
-constant-folded selects, not memory gathers.
+For the tiny tables a scene carries (media, BSDFs, emitters, shapes — all
+O(1..16) rows) an unrolled select chain replaces `jnp.take`: it fuses into
+the surrounding elementwise kernel, where a gather is a separate
+operation with its own round trip through device memory. This mirrors
+how the reference keeps per-plugin parameters in pointer-chased objects:
+the array-program equivalent of "cheap field access" is constant-folded
+selects, not memory gathers.
 
 Semantics: identical to `jnp.take(table, idx, axis=0)` for idx in
 [0, len(table)); out-of-range indices return row 0 (callers that rely on
@@ -41,12 +39,10 @@ def take(table, idx, max_unroll: int = _MAX_UNROLL):
 
 
 def onehot_take(table, idx):
-    """Row lookup via a one-hot matmul on the MXU — ~5x faster than the
-    hardware gather for mid-size tables (measured 0.28ms vs 2.2ms for a
-    512-row table at 262k lanes). Exactness: the one-hot matrix is exact 0/1
-    and each output element is a single product, so HIGHEST precision
-    reconstructs the f32 row to ~1 ulp. Use for tables of 32..1024 rows;
-    out-of-range indices return zeros."""
+    """Row lookup via a one-hot matmul, for mid-size tables (32..1024
+    rows). Exactness: the one-hot matrix is exact 0/1 and each output
+    element is a single product, so HIGHEST precision reconstructs the f32
+    row to ~1 ulp. Out-of-range indices return zeros."""
     n = table.shape[0]
     tab2d = table.reshape(n, -1)
     oh = (idx[:, None] == jnp.arange(n, dtype=idx.dtype)[None, :]).astype(

@@ -1,7 +1,7 @@
 """Special math: quadrature, root finding, vMF, spherical harmonics, and a
 chi-square goodness-of-fit harness.
 
-TPU-native port of the reference's libcore special math:
+Array-program port of the reference's libcore special math:
   - Gauss-Lobatto adaptive quadrature     (src/libcore/quad.cpp, 1433 LoC)
   - Brent's method root finding           (src/libcore/brent.cpp)
   - von Mises-Fisher distribution         (src/libcore/vmf.cpp)

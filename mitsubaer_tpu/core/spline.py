@@ -4,7 +4,7 @@ interpolation engine under the refractive-index field; Spline<3>::value /
 gradient / hessian / valueAndGradient / valueGradientAndHessian at
 basisspline.h:302-473).
 
-TPU redesign: coefficients are a dense (nz, ny, nx) array; a lookup gathers
+Array-program redesign: coefficients are a dense (nz, ny, nx) array; a lookup gathers
 the 4x4x4 coefficient neighborhood per query point and contracts it against
 tensor-product basis weights — one fused XLA computation, batched over all
 query points, no pointer chasing. The interpolation *prefilter* (turning grid

@@ -3,7 +3,7 @@ parameters (sigma_a / sigma_s voxel-or-constant, density grid, phase g, and
 later the RIF grid).
 
 The reference renderer has NO parameter gradients (SURVEY.md §2.9 note); this
-is the new capability the TPU build adds. Estimator design ("differential
+is the new capability this framework adds. Estimator design ("differential
 path sampling"):
   - all sampling decisions (distances, collision accept/reject, directions)
     are DETACHED (stop_gradient) — the sample distribution is frozen at the

@@ -2,7 +2,7 @@
 
 Reference: src/integrators/bdpt/bdpt_proc.cpp:140-480 (the reference's
 primary integrator — all bundled ER/transient scenes render through it) on
-top of libbidir's PathVertex/PathEdge (vertex.cpp, edge.cpp). TPU redesign:
+top of libbidir's PathVertex/PathEdge (vertex.cpp, edge.cpp). Array-program redesign:
 
 * Subpaths are FIXED-DEPTH stacked arrays (n, K, ...) built by `lax.scan`
   random walks — no pointer-chasing vertex lists; every lane walks in
@@ -193,7 +193,7 @@ def _surface_walk(scene, cfg, o0, d0, beta1, pdf0_dir, origin_p, origin_ng,
         # medium vertices whose incident direction is the curved exit
         # velocity (vertex.cpp:250-256) and whose path length is OPTICAL
         # (edge.cpp opticalLength bookkeeping).
-        rif = ek.rif_from_media(media)
+        rif = ek.rif_from_media(media, cfg.rif_kinds)
         sdf = ek.sdf_from_media(media)
         _, sa_er, ss_er, sw_er, er_idx = _refractive_params(scene)
         st_er = sa_er + ss_er
@@ -246,7 +246,8 @@ def _surface_walk(scene, cfg, o0, d0, beta1, pdf0_dir, origin_p, origin_ng,
             n_start = jnp.maximum(ek.rif_value(rif, o), 1e-6)
             v_in = d * n_start[..., None]
             p_m, v_m, opt_m, geo_m, exited_m, _ = ek.trace_curved(
-                rif, sdf, o, v_in, march_dist, h_er, max_march, er_ln)
+                rif, sdf, o, v_in, march_dist, h_er, max_march, er_ln,
+                kernels=cfg.kernels)
             scat_er = er_ln & hs & ~exited_m
             exit_er = er_ln & (exited_m | ~hs)
             p_b, v_b, opt_b, adv_b = ek.refine_boundary(rif, sdf, p_m, v_m,
@@ -724,7 +725,7 @@ def _bdpt_pass(scene, eye_img, splat_img, cfg, T_MAX, S_MAX, seed, pass_idx,
     act = cfg.bsdf_kinds or None
     bricks = medium_m.DensityBricks(scene.media)
     if any_er:
-        rif = ek.rif_from_media(scene.media)
+        rif = ek.rif_from_media(scene.media, cfg.rif_kinds)
         sdf = ek.sdf_from_media(scene.media)
         _, sa_er, ss_er, _, er_idx = _refractive_params(scene)
         st_er = sa_er + ss_er
@@ -867,7 +868,8 @@ def _bdpt_pass(scene, eye_img, splat_img, cfg, T_MAX, S_MAX, seed, pass_idx,
                 bvp = ek.solve_bvp(
                     rif, sdf, p1, p2, chord, h_bvp, bvp_steps, er_conn,
                     tol2=cfg.bvp_tol2, rr_weight=cfg.rr_weight,
-                    seed_bits=seed_er, max_restarts=cfg.bvp_restarts)
+                    seed_bits=seed_er, max_restarts=cfg.bvp_restarts,
+                    kernels=cfg.kernels)
                 er_ok = er_conn & bvp.converged
                 # direction leaving z / leaving y along the curved path
                 wz_er = jnp.where(from_z[..., None], bvp.dir_to_target,
@@ -1053,7 +1055,7 @@ def _bdpt_pass(scene, eye_img, splat_img, cfg, T_MAX, S_MAX, seed, pass_idx,
                 rif, sdf, yp, jnp.broadcast_to(cam_p, (n, 3)), d_c,
                 h_bvp, bvp_steps, y_er1, tol2=cfg.bvp_tol2,
                 rr_weight=cfg.rr_weight, seed_bits=seed_t1,
-                max_restarts=cfg.bvp_restarts)
+                max_restarts=cfg.bvp_restarts, kernels=cfg.kernels)
             y_er1_ok = y_er1 & bvp1.converged
             d_c = jnp.where(y_er1[..., None], bvp1.dir_to_target, d_c)
             d_arr1 = -bvp1.rev_dir

@@ -1,26 +1,37 @@
-"""Whole-path Pallas renderer for bounded-scattering-volume scenes.
+"""Whole-path renderer for bounded-scattering-volume scenes.
 
-The wavefront engine's pass structure leaves tracking slots ~20% occupied
-(PERF.md): lanes stall between event passes, and every XLA pass pays full
-width. This module runs the ENTIRE per-sample walk of the reference's
-headline volumetric benchmark scene class
+The wavefront engine runs the per-sample walk as ~80 full-width masked
+event passes per super-iteration, each a round trip of the whole lane
+state through device memory. This module runs the ENTIRE per-sample walk
+of the reference's headline volumetric benchmark scene class
 (scenes/volumetric/BoundedScatteringVolume_directionalsource.xml — a
 null-boundary box of heterogeneous HG medium lit by a collimated beam,
-perspective camera, no other geometry) inside ONE Pallas kernel:
+perspective camera, no other geometry) as one per-lane state machine:
 
   camera regeneration -> box entry -> Woodcock free flight
-  (stochastic-trilinear taps, megatrack.py) -> HG scatter with
-  equiangular collimated-beam NEE -> shadow ratio tracking -> escape ->
+  (stochastic-trilinear taps) -> HG scatter with equiangular
+  collimated-beam NEE -> shadow ratio tracking -> escape ->
   film accumulation -> next sample,
 
-as a per-lane state machine stepped by a while loop. A lane that
-finishes a sample regenerates the next one in the same trip, so
-occupancy stays ~100% until a lane exhausts its spp; the per-block tail
-is small because each lane's total trip count is a SUM over sppc iid
-samples (CLT: the block max approaches the block mean as spp grows —
-the averaging that per-sample kernels lack). Exactly one density tap
-runs per trip (extension OR shadow, selected by mode), so the trip cost
-stays at the megapass's ~3-4.5 ns/lane.
+stepped by a while loop. A lane that finishes a sample regenerates the
+next one in the same trip, so occupancy stays ~100% until a lane exhausts
+its spp; the per-block tail is small because each lane's total trip count
+is a SUM over sppc iid samples (CLT: the block max approaches the block
+mean as spp grows). Exactly one density tap runs per trip (extension OR
+shadow, selected by mode).
+
+The per-trip body (`_trip`) is written once, on per-lane arrays, and runs
+two ways:
+
+  * in a Pallas kernel for the Triton route (`route="triton"`): each
+    program owns a block of lanes whose state stays in registers as the
+    loop carry; the density tap and the beam-tau row are direct indexed
+    loads from the f32 grid and table in device memory (a 64^3 grid is
+    1 MiB and stays L2-resident); each finished sample's RGB goes out by a
+    masked store to its own (sample, lane) slot, written once, so no
+    atomics are needed;
+  * under jax.jit over all lanes as a plain lax.while_loop (`route="xla"`)
+    — the reference for the kernel and what XLA makes of the same walk.
 
 Estimator identity: the walk replicates integrators/wavefront.py's event
 algebra for this scene class step for step — spectral Woodcock weights
@@ -28,28 +39,33 @@ algebra for this scene class step for step — spectral Woodcock weights
 sampling + packed beam-tau rows (volpath.py sample_beam_point /
 build_beam_tau), HG sampling/eval (hg.cpp:74-107), Mitsuba-style RR
 (path.cpp:200-208), depth gating, and the lane-rotation pixel mapping +
-epoch film fold. The density tap is the stochastic-trilinear one-voxel
-tap (see megatrack.py — provably the same marginal estimator). Segment /
-tap counters follow the wavefront engine's conventions so the bench
-metric stays comparable.
+epoch film fold. The density tap is stochastic trilinear: each tap picks
+ONE voxel per axis with probability equal to its trilinear weight
+(corner = floor(x) + [u < frac(x)]). For delta/ratio tracking this is
+exactly unbiased — every branch's probability times its weight is LINEAR
+in the sampled density S (real: S*sm/maj * ss/sm = S*ss/maj; null:
+(1-S*sm/maj) * (1-S*st/maj)/(1-S*sm/maj) = 1-S*st/maj; ratio factor:
+1-S*st/maj), so marginalizing the per-tap jitter reproduces the
+trilinear-density estimator term by term (the reference evaluates the
+full stencil per tap, heterogeneous.cpp:420). Segment / tap counters
+follow the wavefront engine's conventions.
 
 Applicability is gated host-side (`supported()`): one heterogeneous
 medium, all-null geometry, exactly one collimated emitter, perspective
 sensor, box filter, steady state, iso/HG phase. Everything else renders
 through the general engines.
-
-Mosaic notes: atan2/tan are not lowered — the equiangular warp uses a
-minimax atan polynomial (max err ~1e-5 rad) and tan = sin/cos.
 """
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
+from ..core import kernels as kernels_m
 from ..models import medium as medium_m
 from ..scene.types import (
     EM_COLLIMATED,
@@ -60,12 +76,13 @@ from ..scene.types import (
     RenderConfig,
     Scene,
 )
-from . import common, megatrack
+from . import common
 from .volpath import build_beam_tau, get_beam
 
 BEAM_N = 256          # beam-tau table rows (volpath.build_beam_tau)
+BEAM_W = 8            # floats per beam-tau row
 
-# params vector layout (f32, SMEM)
+# params vector layout (f32)
 _P_CAMR = 0           # 0:9   camera rotation, row major
 _P_CAMO = 9           # 9:12  camera origin
 _P_TANX = 12
@@ -86,7 +103,10 @@ _P_DMIN = 40         # 40:43 density aabb min
 _P_INVH = 43         # 43:46 (res-1)/extent per axis
 _P_WR = 46           # 46:49 w_real = sigma_s / sigma_t_mean
 _P_EPS = 49
-_P_NP = 50
+_P_NP = 64           # padded to a power of two
+
+# mode of a lane
+_REGEN, _TRACK, _SHADOW, _DONE = 0, 1, 2, 3
 
 
 def supported(scene: Scene, cfg: RenderConfig) -> bool:
@@ -116,8 +136,6 @@ def supported(scene: Scene, cfg: RenderConfig) -> bool:
         sb = np.asarray(scene.shapes.bsdf)
         if sb.size and np.any(sb >= 0):
             return False
-        if not megatrack.MegaTable.fits(scene.media):
-            return False
         if int(np.asarray(scene.camera_medium)) != -1:
             return False
         return True
@@ -139,41 +157,77 @@ def _unif(bits):
         * jnp.float32(5.9604644775390625e-08)
 
 
-def _atan(x):
-    ax = jnp.abs(x)
-    inv = ax > 1.0
-    z = jnp.where(inv, 1.0 / jnp.maximum(ax, 1.0), ax)
-    z2 = z * z
-    at = z * (0.9998660 + z2 * (-0.3302995 + z2 * (0.1801410
-              + z2 * (-0.0851330 + z2 * 0.0208351))))
-    at = jnp.where(inv, 1.5707963267948966 - at, at)
-    return jnp.where(x < 0, -at, at)
+class _Static(NamedTuple):
+    """Static (hashable) walk settings."""
+    sppc: int
+    max_depth: int
+    rr_depth: int
+    width: int
+    height: int
+    npix: int
+    stride: int
+    res: tuple            # density grid (nx, ny, nz)
 
 
-def _kernel(B, sppc, max_depth, rr_depth, W_img, H_img, npix, stride, res,
-            nb, max_trips, params_ref, seed_ref, tab_ref, beam_ref,
-            out_ref, st_s, pend_s):
-    nx, ny, nz = res
-    nbx, nby, nbz = nb
-    R = nbx * nby * nbz
-    Wb = megatrack.W
+class _Lane(NamedTuple):
+    """Per-lane walk state; every leaf has the lane shape."""
+    m: jnp.ndarray        # int32 mode (_REGEN/_TRACK/_SHADOW/_DONE)
+    t: jnp.ndarray
+    t_end: jnp.ndarray
+    depth: jnp.ndarray    # int32
+    idx: jnp.ndarray      # int32 current sample index (-1 before the first)
+    sh_seg: jnp.ndarray
+    sh_t: jnp.ndarray
+    cont_ok: jnp.ndarray  # int32 flag: resume the stashed scatter after NEE
+    segs: jnp.ndarray     # int32 traced segments
+    taps: jnp.ndarray     # int32 density taps
+    ctr: jnp.ndarray      # uint32 RNG counter
+    p: tuple
+    d: tuple
+    tp: tuple
+    L: tuple
+    sh_o: tuple
+    sh_d: tuple
+    sh_tr: tuple
+    sh_val: tuple
+    cont_p: tuple
+    cont_d: tuple
 
-    def P(i):
-        return params_ref[i]
+
+def _init_lanes(shape) -> _Lane:
+    f0 = jnp.zeros(shape, jnp.float32)
+    i0 = jnp.zeros(shape, jnp.int32)
+    v0 = (f0, f0, f0)
+    one = jnp.ones(shape, jnp.float32)
+    return _Lane(m=i0, t=f0, t_end=f0, depth=i0,
+                 idx=jnp.full(shape, -1, jnp.int32), sh_seg=f0, sh_t=f0,
+                 cont_ok=i0, segs=i0, taps=i0,
+                 ctr=jnp.zeros(shape, jnp.uint32),
+                 p=v0, d=(one, one, one), tp=v0, L=v0, sh_o=v0, sh_d=v0,
+                 sh_tr=v0, sh_val=v0, cont_p=v0, cont_d=v0)
+
+
+def _w3(c, a, b):
+    return tuple(jnp.where(c, a[i], b[i]) for i in range(3))
+
+
+def _dot3(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _max3(a):
+    return jnp.maximum(jnp.maximum(a[0], a[1]), a[2])
+
+
+def _trip(s: _Lane, P, fetch_dens, fetch_beam, lane, seed, S: _Static):
+    """One trip of every lane's state machine. P(i) reads params scalar i;
+    fetch_dens / fetch_beam load the flat density grid / beam table at an
+    int32 index array. Returns (state, finished, sample index, radiance):
+    lanes with `finished` set completed sample `idx` with radiance L."""
+    nx, ny, nz = S.res
 
     def P3(i):
-        return jnp.stack([params_ref[i], params_ref[i + 1],
-                          params_ref[i + 2]]).reshape(3, 1)
-
-    seed = seed_ref[0]
-    lane = (jax.lax.broadcasted_iota(jnp.int32, (1, B), 1)
-            + B * pl.program_id(0))
-    laneu = lane.astype(jnp.uint32)
-    iota_r = jax.lax.broadcasted_iota(jnp.int32, (R, B), 0)
-    iota_j = jax.lax.broadcasted_iota(jnp.int32, (Wb, B), 0)
-    iota_beam = jax.lax.broadcasted_iota(jnp.int32, (BEAM_N, B), 0)
-    iota_ep = jax.lax.broadcasted_iota(jnp.int32, (sppc * 3, B), 0) // 3
-    iota_ch = jax.lax.broadcasted_iota(jnp.int32, (sppc * 3, B), 0) % 3
+        return (P(i), P(i + 1), P(i + 2))
 
     camR = [P(_P_CAMR + i) for i in range(9)]
     g = P(_P_G)
@@ -193,10 +247,8 @@ def _kernel(B, sppc, max_depth, rr_depth, W_img, H_img, npix, stride, res,
     beam_pw = P3(_P_BEAMP)
     bs0 = P(_P_BS0)
     bs1 = P(_P_BS1)
-    resx = jnp.float32(nx - 1)
-    resy = jnp.float32(ny - 1)
-    resz = jnp.float32(nz - 1)
     INV4PI = jnp.float32(0.07957747154594767)
+    zero = jnp.zeros(lane.shape, jnp.float32)
 
     def hg_eval(cos_fwd):
         """phase eval with cos_forward = dot(wi, wo) (phase.py:76-82)."""
@@ -205,325 +257,311 @@ def _kernel(B, sppc, max_depth, rr_depth, W_img, H_img, npix, stride, res,
         return jnp.where(jnp.abs(g) < 1e-4, INV4PI, v)
 
     def ray_aabb(o, d):
-        inv = 1.0 / jnp.where(jnp.abs(d) < 1e-12,
-                              jnp.where(d < 0, -1e-12, 1e-12), d)
-        ta = (bmin - o) * inv
-        tb = (bmax - o) * inv
-        t0 = jnp.max(jnp.minimum(ta, tb), axis=0, keepdims=True)
-        t1 = jnp.min(jnp.maximum(ta, tb), axis=0, keepdims=True)
+        t0 = t1 = None
+        for a in range(3):
+            inv = 1.0 / jnp.where(jnp.abs(d[a]) < 1e-12,
+                                  jnp.where(d[a] < 0, -1e-12, 1e-12), d[a])
+            ta = (bmin[a] - o[a]) * inv
+            tb = (bmax[a] - o[a]) * inv
+            lo, hi = jnp.minimum(ta, tb), jnp.maximum(ta, tb)
+            t0 = lo if t0 is None else jnp.maximum(t0, lo)
+            t1 = hi if t1 is None else jnp.minimum(t1, hi)
         return t0, t1
 
-    def tap(p, u3x, u3y, u3z):
-        xv = (p - dmin) * invh
-        px_ = xv[0:1, :]
-        py_ = xv[1:2, :]
-        pz_ = xv[2:3, :]
-        inside = ((px_ >= 0.0) & (px_ <= resx) & (py_ >= 0.0)
-                  & (py_ <= resy) & (pz_ >= 0.0) & (pz_ <= resz))
-        px_ = jnp.clip(px_, 0.0, resx)
-        py_ = jnp.clip(py_, 0.0, resy)
-        pz_ = jnp.clip(pz_, 0.0, resz)
+    def tap(pos, u3):
+        inside = None
+        cell = []
+        for a, n_a in enumerate((nx, ny, nz)):
+            hi = jnp.float32(n_a - 1)
+            x = (pos[a] - dmin[a]) * invh[a]
+            ok = (x >= 0.0) & (x <= hi)
+            inside = ok if inside is None else inside & ok
+            x = jnp.clip(x, 0.0, hi)
+            base = jnp.floor(x)
+            c = base + (u3[a] < x - base).astype(jnp.float32)
+            cell.append(jnp.minimum(c, hi).astype(jnp.int32))
+        S_ = fetch_dens((cell[2] * ny + cell[1]) * nx + cell[0])
+        return jnp.where(inside, S_, 0.0)
 
-        def corner(v, u, hi):
-            base = jnp.floor(v)
-            c = base + (u < v - base).astype(jnp.float32)
-            return jnp.minimum(c, hi).astype(jnp.int32)
+    m0 = s.m                                  # mode at trip start
+    bits = (lane.astype(jnp.uint32) ^ jnp.uint32(0x9E3779B9)) \
+        + s.ctr * jnp.uint32(0x85EBCA6B) + seed
+    u = []
+    for k in range(9):
+        bits = _hash(bits + jnp.uint32((0x68E31DA4 + 0x3504F333 * k)
+                                       & 0xFFFFFFFF))
+        u.append(_unif(bits))
+    ctr = s.ctr + jnp.where(s.m < _DONE, 9, 0).astype(jnp.uint32)
 
-        cx = corner(px_, u3x, resx)
-        cy = corner(py_, u3y, resy)
-        cz = corner(pz_, u3z, resz)
-        r_idx = ((cz >> 3) * nby + (cy >> 3)) * nbx + (cx >> 3)
-        j_idx = (((cz & 7) * 8) + (cy & 7)) * 8 + (cx & 7)
-        oh_r = (iota_r == r_idx).astype(jnp.float32).astype(jnp.bfloat16)
-        rows = jax.lax.dot_general(
-            tab_ref[:], oh_r, dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-        oh_j = (iota_j == j_idx).astype(jnp.float32)
-        S = jnp.sum(rows * oh_j, axis=0, keepdims=True)
-        return jnp.where(inside, S, 0.0)
+    # ================= regenerate =================
+    regen = s.m == _REGEN
+    has_more = s.idx + 1 < S.sppc
+    start = regen & has_more
+    m = jnp.where(regen & ~has_more, _DONE, s.m)
+    idx = s.idx + jnp.where(start, 1, 0)
+    pix = (lane + idx * S.stride) % S.npix
+    fx = (pix % S.width).astype(jnp.float32) + u[0]
+    fy = (pix // S.width).astype(jnp.float32) + u[1]
+    dc_x = -(2.0 * fx / jnp.float32(S.width) - 1.0) * P(_P_TANX)
+    dc_y = -(2.0 * fy / jnp.float32(S.height) - 1.0) * P(_P_TANY)
+    dw = tuple(camR[3 * a] * dc_x + camR[3 * a + 1] * dc_y + camR[3 * a + 2]
+               for a in range(3))
+    inv_n = 1.0 / jnp.sqrt(_dot3(dw, dw))
+    dw = tuple(c * inv_n for c in dw)
+    ow = tuple(c + zero for c in P3(_P_CAMO))
+    t0c, t1c = ray_aabb(ow, dw)
+    t0c = jnp.maximum(t0c, 0.0)
+    hitbox = (t1c > t0c + 2.0 * eps) & start
+    p = _w3(start, tuple(ow[a] + (t0c + eps) * dw[a] for a in range(3)), s.p)
+    d = _w3(start, dw, s.d)
+    t = jnp.where(start, 0.0, s.t)
+    t_end = jnp.where(start, t1c - t0c - 2.0 * eps, s.t_end)
+    tp = _w3(start, (1.0, 1.0, 1.0), s.tp)
+    depth = jnp.where(start, 1, s.depth)
+    L = _w3(start, (0.0, 0.0, 0.0), s.L)
+    m = jnp.where(hitbox, _TRACK, m)      # miss: stays REGEN (L=0 sample)
+    segs = s.segs + jnp.where(start, 1, 0) + jnp.where(hitbox, 1, 0)
+
+    # ============ one density tap serves extension OR shadow ============
+    trk = m == _TRACK
+    shd = m0 == _SHADOW
+    jump = -jnp.log(jnp.maximum(1.0 - u[2], 1e-12)) / maj
+    t_new = t + jump
+    sh_new = s.sh_t + jump
+    pos = tuple(jnp.where(shd, s.sh_o[a] + sh_new * s.sh_d[a],
+                          p[a] + t_new * d[a]) for a in range(3))
+    Sd = tap(pos, (u[3], u[4], u[5]))
+    taps = s.taps + jnp.where(trk | shd, 1, 0)
+
+    # ================= extension =================
+    esc = t_new >= t_end
+    p_real = Sd * stm_s / maj
+    real = trk & (u[6] < p_real) & ~esc
+    nullc = trk & ~esc & ~real
+    factor = tuple(jnp.maximum(1.0 - Sd * c / maj, 0.0) for c in stc_s)
+    inv_pn = 1.0 / jnp.maximum(1.0 - p_real, 1e-12)
+    tp = _w3(nullc, tuple(tp[a] * factor[a] * inv_pn for a in range(3)), tp)
+    t = jnp.where(trk, jnp.minimum(t_new, t_end), t)
+    fin_esc = trk & esc
+    segs = segs + jnp.where(fin_esc, 1, 0)        # vacuum exit leg
+
+    x = tuple(p[a] + t * d[a] for a in range(3))
+    tp = _w3(real, tuple(tp[a] * w_real[a] for a in range(3)), tp)
+    depth_ok = depth < S.max_depth
+    die_depth = real & ~depth_ok
+
+    # ---- beam NEE (equiangular, volpath.py sample_beam_point) ----
+    delta = _dot3(tuple(x[a] - beam_o[a] for a in range(3)), beam_d)
+    closest = tuple(beam_o[a] + delta * beam_d[a] for a in range(3))
+    off = tuple(x[a] - closest[a] for a in range(3))
+    hdist = jnp.sqrt(jnp.maximum(_dot3(off, off), 1e-12))
+    th_a = jnp.arctan2(bs0 - delta, hdist)
+    th_b = jnp.arctan2(bs1 - delta, hdist)
+    th = th_a + u[7] * (th_b - th_a)
+    s_rel = hdist * jnp.tan(th)
+    s_b = delta + s_rel
+    pdf_sb = hdist / jnp.maximum(
+        (th_b - th_a) * (hdist * hdist + s_rel * s_rel), 1e-12)
+    y = tuple(beam_o[a] + s_b * beam_d[a] for a in range(3))
+    to_x = tuple(x[a] - y[a] for a in range(3))
+    dist_b = jnp.sqrt(jnp.maximum(_dot3(to_x, to_x), 1e-12))
+    d_yp = tuple(c / dist_b for c in to_x)
+    fb = (s_b - bs0) / jnp.maximum(bs1 - bs0, 1e-9) \
+        * jnp.float32(BEAM_N) - 0.5
+    fb = jnp.clip(fb, 0.0, jnp.float32(BEAM_N - 1))
+    ib = jnp.floor(fb)
+    frb = fb - ib
+    row0 = ib.astype(jnp.int32) * BEAM_W
+    brow = [fetch_beam(row0 + r) for r in range(7)]
+    sigs_y = brow[6]                       # table density already scaled
+    rho_y = hg_eval(_dot3(beam_d, d_yp))
+    f_x = hg_eval(-_dot3(d, d_yp))
+    geom = rho_y / jnp.maximum(pdf_sb * dist_b * dist_b, 1e-12)
+    val = []
+    for a in range(3):
+        tau_b = jnp.where(s_b < bs0, 0.0, brow[a] + brow[3 + a] * frb)
+        val.append(tp[a] * f_x * beam_pw[a] * jnp.exp(-tau_b)
+                   * ssu[a] * sigs_y * geom)
+    val = tuple(val)
+    nee_ok = real & depth_ok & (_max3(val) > 0.0)
+
+    # ---- HG/iso continuation direction ----
+    sqr = (1.0 - g * g) / (1.0 - g + 2.0 * g * u[0])
+    cth_a = (1.0 + g * g - sqr * sqr) / (2.0 * g_safe)
+    cth = jnp.where(jnp.abs(g) < 1e-4, 1.0 - 2.0 * u[0], cth_a)
+    sth = jnp.sqrt(jnp.maximum(1.0 - cth * cth, 0.0))
+    phi = jnp.float32(6.283185307179586) * u[1]
+    lx = sth * jnp.cos(phi)
+    ly = sth * jnp.sin(phi)
+    sgn = jnp.where(d[2] >= 0.0, 1.0, -1.0)
+    a_f = -1.0 / (sgn + d[2])
+    b_f = d[0] * d[1] * a_f
+    new_d = (lx * (1.0 + sgn * d[0] * d[0] * a_f) + ly * b_f + cth * d[0],
+             lx * (sgn * b_f) + ly * (sgn + d[1] * d[1] * a_f) + cth * d[1],
+             lx * (-sgn * d[0]) + ly * (-d[1]) + cth * d[2])
+
+    # ---- RR (common.russian_roulette, eta_scale=1) ----
+    q = jnp.minimum(_max3(tp), 0.95)
+    do_rr = depth >= S.rr_depth
+    survive = ~do_rr | (u[8] < q)
+    inv_q = 1.0 / jnp.maximum(q, 1e-6)
+    tp = _w3(real & do_rr, tuple(c * inv_q for c in tp), tp)
+    cont_after = real & depth_ok & survive
+    depth = jnp.where(real & depth_ok, depth + 1, depth)
+
+    cont_p = _w3(real, x, s.cont_p)
+    cont_d = _w3(real, new_d, s.cont_d)
+    cont_ok = jnp.where(real, jnp.where(cont_after, 1, 0), s.cont_ok)
+    go = nee_ok
+    m = jnp.where(go, _SHADOW, m)
+    sh_o = _w3(go, tuple(y[a] + d_yp[a] * eps for a in range(3)), s.sh_o)
+    sh_d = _w3(go, d_yp, s.sh_d)
+    sh_seg = jnp.where(go, dist_b - 2.0 * eps, s.sh_seg)
+    sh_t = jnp.where(go, 0.0, s.sh_t)
+    sh_tr = _w3(go, (1.0, 1.0, 1.0), s.sh_tr)
+    sh_val = _w3(go, val, s.sh_val)
+    segs = segs + jnp.where(go, 1, 0)
+    resume_now = real & ~nee_ok & cont_after
+    die_now = (real & ~nee_ok & ~cont_after) | die_depth
+
+    # ================= shadow (trip-start lanes) ============
+    sh_esc = sh_new >= sh_seg
+    upd = shd & ~sh_esc
+    sh_tr = _w3(upd, tuple(sh_tr[a] * factor[a] for a in range(3)), sh_tr)
+    sh_t = jnp.where(shd, jnp.minimum(sh_new, sh_seg), sh_t)
+    tr_dead = _max3(sh_tr) <= 0.0
+    sh_done = shd & (sh_esc | tr_dead)
+    add = sh_done & ~tr_dead
+    L = tuple(L[a] + jnp.where(add, sh_val[a] * sh_tr[a], 0.0)
+              for a in range(3))
+    res_sh = sh_done & (cont_ok > 0)
+    die_sh = sh_done & ~(cont_ok > 0)
+
+    # ---- resume the stashed continuation ----
+    res_any = resume_now | res_sh
+    p = _w3(res_any, tuple(cont_p[a] + cont_d[a] * eps for a in range(3)), p)
+    d = _w3(res_any, cont_d, d)
+    _, t1r = ray_aabb(p, d)
+    t = jnp.where(res_any, 0.0, t)
+    t_end = jnp.where(res_any, jnp.maximum(t1r - eps, 0.0), t_end)
+    m = jnp.where(res_any, _TRACK, m)
+    segs = segs + jnp.where(res_any, 1, 0)
+
+    # ---- finished samples leave; the lane regenerates next trip ----
+    fin = fin_esc | die_now | die_sh
+    L_fin = L
+    m = jnp.where(fin, _REGEN, m)
+    L = _w3(fin, (0.0, 0.0, 0.0), L)
+
+    st = _Lane(m=m, t=t, t_end=t_end, depth=depth, idx=idx, sh_seg=sh_seg,
+               sh_t=sh_t, cont_ok=cont_ok, segs=segs, taps=taps, ctr=ctr,
+               p=p, d=d, tp=tp, L=L, sh_o=sh_o, sh_d=sh_d, sh_tr=sh_tr,
+               sh_val=sh_val, cont_p=cont_p, cont_d=cont_d)
+    return st, fin, idx, L_fin
+
+
+def _not_done(st: _Lane):
+    return jnp.min(st.m) < _DONE
+
+
+def _kernel(S, max_trips, params_ref, seed_ref, dens_ref, beam_ref,
+            film_in_ref, film_ref, stats_ref):
+    """One program: a block of B lanes walks until all its lanes are done.
+    film_ref (aliased to the zero-filled film_in_ref) is the flat
+    (sppc, 3, npad) radiance table; stats_ref rows: segs, taps, trips,
+    last sample index."""
+    del film_in_ref
+    B = stats_ref.shape[1]
+    npad = film_ref.shape[0] // (3 * S.sppc)
+    lane = (jax.lax.broadcasted_iota(jnp.int32, (B,), 0)
+            + B * pl.program_id(0))
+    seed = seed_ref[0]
+
+    def P(i):
+        return params_ref[i]
+
+    def fetch_dens(i):
+        return dens_ref[i]
+
+    def fetch_beam(i):
+        return beam_ref[i]
 
     def body(carry):
-        # per-lane state lives in the VMEM scratch st_s: ref READS give
-        # Mosaic sublane-replicated (1,B) layouts, which the one-hot
-        # broadcasts ((R,B)/(96,B) compares) require — loop-carried
-        # vectors are sublane-pinned and those broadcasts fail to lower
-        # ("Sublane broadcast not implemented"). Rows:
-        #   0 m, 1 t, 2 t_end, 3 depth, 4 idx, 5 sh_seg, 6 sh_t,
-        #   7 cont_ok, 8 segs, 9 taps, 10 ctr (f32; trip counts stay well
-        #   under 2^24), 11:14 p, 14:17 d, 17:20 tp, 20:23 L, 23:26 sh_o,
-        #   26:29 sh_d, 29:32 sh_tr, 32:35 sh_val, 35:38 cont_p,
-        #   38:41 cont_d
-        trips, _done = carry
-        m = st_s[0:1, :]
-        t = st_s[1:2, :]
-        t_end = st_s[2:3, :]
-        depth = st_s[3:4, :]
-        idx = st_s[4:5, :]
-        sh_seg = st_s[5:6, :]
-        sh_t = st_s[6:7, :]
-        cont_ok = st_s[7:8, :]
-        segs = st_s[8:9, :]
-        taps = st_s[9:10, :]
-        ctrf = st_s[10:11, :]
-        p = st_s[11:14, :]
-        d = st_s[14:17, :]
-        tp = st_s[17:20, :]
-        L = st_s[20:23, :]
-        sh_o = st_s[23:26, :]
-        sh_d = st_s[26:29, :]
-        sh_tr = st_s[29:32, :]
-        sh_val = st_s[32:35, :]
-        cont_p = st_s[35:38, :]
-        cont_d = st_s[38:41, :]
-        m0 = m                                    # mode at trip start
-
-        ctr = ctrf.astype(jnp.int32).astype(jnp.uint32)
-        bits = []
-        b = (laneu ^ jnp.uint32(0x9E3779B9)) + ctr * jnp.uint32(0x85EBCA6B) \
-            + seed
-        for k in range(9):
-            b = _hash(b + jnp.uint32((0x68E31DA4 + 0x3504F333 * k)
-                                     & 0xFFFFFFFF))
-            bits.append(b)
-        u = [_unif(x) for x in bits]
-        ctrf = ctrf + jnp.where(m < 2.5, 9.0, 0.0)
-
-        # ================= mode 0: regenerate =================
-        regen = m == 0.0
-        has_more = idx + 1.0 < jnp.float32(sppc)
-        start = regen & has_more
-        m = jnp.where(regen & ~has_more, 3.0, m)
-        idx = idx + jnp.where(start, 1.0, 0.0)
-        idxi = idx.astype(jnp.int32)
-        pix = (lane + idxi * stride) % npix
-        fx = (pix % W_img).astype(jnp.float32) + u[0]
-        fy = (pix // W_img).astype(jnp.float32) + u[1]
-        ndc_x = 2.0 * fx / jnp.float32(W_img) - 1.0
-        ndc_y = 2.0 * fy / jnp.float32(H_img) - 1.0
-        dc_x = -ndc_x * P(_P_TANX)
-        dc_y = -ndc_y * P(_P_TANY)
-        dw = jnp.concatenate([
-            camR[0] * dc_x + camR[1] * dc_y + camR[2],
-            camR[3] * dc_x + camR[4] * dc_y + camR[5],
-            camR[6] * dc_x + camR[7] * dc_y + camR[8],
-        ], axis=0)
-        dw = dw / jnp.sqrt(jnp.sum(dw * dw, axis=0, keepdims=True))
-        ow = P3(_P_CAMO) * jnp.ones((3, B), jnp.float32)
-        t0c, t1c = ray_aabb(ow, dw)
-        t0c = jnp.maximum(t0c, 0.0)
-        hitbox = (t1c > t0c + 2.0 * eps) & start
-        p = jnp.where(start, ow + (t0c + eps) * dw, p)
-        d = jnp.where(start, dw, d)
-        t = jnp.where(start, 0.0, t)
-        t_end = jnp.where(start, t1c - t0c - 2.0 * eps, t_end)
-        tp = jnp.where(start, 1.0, tp)
-        depth = jnp.where(start, 1.0, depth)
-        L = jnp.where(start, 0.0, L)
-        m = jnp.where(hitbox, 1.0, m)     # miss: stay 0 (L=0 sample done)
-        segs = segs + jnp.where(start, 1.0, 0.0) \
-            + jnp.where(hitbox, 1.0, 0.0)
-
-        # ============ one density tap serves ext OR shadow ============
-        trk = m == 1.0
-        shd = m0 == 2.0
-        t_new = t - jnp.log(jnp.maximum(1.0 - u[2], 1e-12)) / maj
-        sh_new = sh_t - jnp.log(jnp.maximum(1.0 - u[2], 1e-12)) / maj
-        x_ext = p + t_new * d
-        x_sh = sh_o + sh_new * sh_d
-        pos = jnp.where(shd, x_sh, x_ext)
-        S = tap(pos, u[3], u[4], u[5])
-        taps = taps + jnp.where(trk | shd, 1.0, 0.0)
-
-        # ================= mode 1: extension =================
-        esc = t_new >= t_end
-        p_real = S * stm_s / maj
-        real = trk & (u[6] < p_real) & ~esc
-        nullc = trk & ~esc & ~real
-        factor = jnp.maximum(1.0 - S * stc_s / maj, 0.0)
-        w_null = factor / jnp.maximum(1.0 - p_real, 1e-12)
-        tp = jnp.where(nullc, tp * w_null, tp)
-        t = jnp.where(trk, jnp.minimum(t_new, t_end), t)
-        fin_esc = trk & esc
-        segs = segs + jnp.where(fin_esc, 1.0, 0.0)  # vacuum exit leg
-
-        x = p + t * d
-        tp = jnp.where(real, tp * w_real, tp)
-        depth_ok = depth < jnp.float32(max_depth)
-        die_depth = real & ~depth_ok
-
-        # ---- beam NEE (equiangular, volpath.py:179-196) ----
-        delta = jnp.sum((x - beam_o) * beam_d, axis=0, keepdims=True)
-        closest = beam_o + delta * beam_d
-        hdist = jnp.sqrt(jnp.maximum(
-            jnp.sum((x - closest) ** 2, axis=0, keepdims=True), 1e-12))
-        th_a = _atan((bs0 - delta) / hdist)
-        th_b = _atan((bs1 - delta) / hdist)
-        th = th_a + u[7] * (th_b - th_a)
-        s_rel = hdist * jnp.sin(th) / jnp.maximum(jnp.abs(jnp.cos(th)),
-                                                  1e-9) \
-            * jnp.where(jnp.cos(th) < 0, -1.0, 1.0)
-        s_b = delta + s_rel
-        pdf_sb = hdist / jnp.maximum(
-            (th_b - th_a) * (hdist * hdist + s_rel * s_rel), 1e-12)
-        y = beam_o + s_b * beam_d
-        to_x = x - y
-        dist_b = jnp.sqrt(jnp.maximum(
-            jnp.sum(to_x * to_x, axis=0, keepdims=True), 1e-12))
-        d_yp = to_x / dist_b
-        fb = (s_b - bs0) / jnp.maximum(bs1 - bs0, 1e-9) \
-            * jnp.float32(BEAM_N) - 0.5
-        fb = jnp.clip(fb, 0.0, jnp.float32(BEAM_N - 1))
-        ib = jnp.floor(fb)
-        frb = fb - ib
-        oh_b = (iota_beam == ib.astype(jnp.int32)).astype(jnp.float32)
-        brow = jax.lax.dot_general(
-            beam_ref[:], oh_b, dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-        tau_b = brow[0:3, :] + brow[3:6, :] * frb
-        tau_b = jnp.where(s_b < bs0, 0.0, tau_b)
-        tr_beam = jnp.exp(-tau_b)
-        sigs_y = ssu * brow[6:7, :]            # table dens already scaled
-        rho_y = hg_eval(jnp.sum(beam_d * d_yp, axis=0, keepdims=True))
-        bval = beam_pw * tr_beam * sigs_y * rho_y \
-            / jnp.maximum(pdf_sb * dist_b * dist_b, 1e-12)
-        f_x = hg_eval(jnp.sum(d * -d_yp, axis=0, keepdims=True))
-        val = tp * f_x * bval
-        nee_ok = real & depth_ok \
-            & (jnp.max(val, axis=0, keepdims=True) > 0.0)
-
-        # ---- HG/iso continuation direction ----
-        sqr = (1.0 - g * g) / (1.0 - g + 2.0 * g * u[0])
-        cth_a = (1.0 + g * g - sqr * sqr) / (2.0 * g_safe)
-        cth = jnp.where(jnp.abs(g) < 1e-4, 1.0 - 2.0 * u[0], cth_a)
-        sth = jnp.sqrt(jnp.maximum(1.0 - cth * cth, 0.0))
-        phi = jnp.float32(6.283185307179586) * u[1]
-        lx = sth * jnp.cos(phi)
-        ly = sth * jnp.sin(phi)
-        dz = d[2:3, :]
-        sgn = jnp.where(dz >= 0.0, 1.0, -1.0)
-        a_f = -1.0 / (sgn + dz)
-        b_f = d[0:1, :] * d[1:2, :] * a_f
-        new_d = jnp.concatenate([
-            lx * (1.0 + sgn * d[0:1, :] * d[0:1, :] * a_f) + ly * b_f
-            + cth * d[0:1, :],
-            lx * (sgn * b_f) + ly * (sgn + d[1:2, :] * d[1:2, :] * a_f)
-            + cth * d[1:2, :],
-            lx * (-sgn * d[0:1, :]) + ly * (-d[1:2, :]) + cth * d[2:3, :],
-        ], axis=0)
-
-        # ---- RR (common.russian_roulette, eta_scale=1) ----
-        q = jnp.minimum(jnp.max(tp, axis=0, keepdims=True), 0.95)
-        do_rr = depth >= jnp.float32(rr_depth)
-        survive = ~do_rr | (u[8] < q)
-        tp = jnp.where(real & do_rr, tp / jnp.maximum(q, 1e-6), tp)
-        cont_after = real & depth_ok & survive
-        depth = jnp.where(real & depth_ok, depth + 1.0, depth)
-
-        cont_p = jnp.where(real, x, cont_p)
-        cont_d = jnp.where(real, new_d, cont_d)
-        cont_ok = jnp.where(real, jnp.where(cont_after, 1.0, 0.0), cont_ok)
-        go_shadow = nee_ok
-        m = jnp.where(go_shadow, 2.0, m)
-        sh_o = jnp.where(go_shadow, y + d_yp * eps, sh_o)
-        sh_d = jnp.where(go_shadow, d_yp, sh_d)
-        sh_seg = jnp.where(go_shadow, dist_b - 2.0 * eps, sh_seg)
-        sh_t = jnp.where(go_shadow, 0.0, sh_t)
-        sh_tr = jnp.where(go_shadow, 1.0, sh_tr)
-        sh_val = jnp.where(go_shadow, val, sh_val)
-        segs = segs + jnp.where(go_shadow, 1.0, 0.0)
-        resume_now = real & ~nee_ok & cont_after
-        die_now = (real & ~nee_ok & ~cont_after) | die_depth
-
-        # ================= mode 2: shadow (trip-start lanes) ============
-        sh_esc = sh_new >= sh_seg
-        upd = shd & ~sh_esc
-        fac2 = factor                          # same S serves the shadow tap
-        sh_tr = jnp.where(upd, sh_tr * fac2, sh_tr)
-        sh_t = jnp.where(shd, jnp.minimum(sh_new, sh_seg), sh_t)
-        tr_dead = jnp.max(sh_tr, axis=0, keepdims=True) <= 0.0
-        sh_done = shd & (sh_esc | tr_dead)
-        L = L + jnp.where(sh_done & ~tr_dead, sh_val * sh_tr, 0.0)
-        res_sh = sh_done & (cont_ok > 0.5)
-        die_sh = sh_done & ~(cont_ok > 0.5)
-
-        # ---- resume the stashed continuation ----
-        res_any = resume_now | res_sh
-        p = jnp.where(res_any, cont_p + cont_d * eps, p)
-        d = jnp.where(res_any, cont_d, d)
-        _, t1r = ray_aabb(p, d)
-        t = jnp.where(res_any, 0.0, t)
-        t_end = jnp.where(res_any, jnp.maximum(t1r - eps, 0.0), t_end)
-        m = jnp.where(res_any, 1.0, m)
-        segs = segs + jnp.where(res_any, 1.0, 0.0)
-
-        # ---- flush finished samples ----
-        fin = fin_esc | die_now | die_sh
-        oh_ep = (iota_ep == idxi).astype(jnp.float32) \
-            * jnp.where(fin, 1.0, 0.0)
-        Lrow = jnp.where(iota_ch == 0, L[0:1, :],
-                         jnp.where(iota_ch == 1, L[1:2, :], L[2:3, :]))
-        pend_s[:] = pend_s[:] + oh_ep * Lrow
-        m = jnp.where(fin, 0.0, m)
-        L = jnp.where(fin, 0.0, L)
-
-        st_s[0:1, :] = m
-        st_s[1:2, :] = t
-        st_s[2:3, :] = t_end
-        st_s[3:4, :] = depth
-        st_s[4:5, :] = idx
-        st_s[5:6, :] = sh_seg
-        st_s[6:7, :] = sh_t
-        st_s[7:8, :] = cont_ok
-        st_s[8:9, :] = segs
-        st_s[9:10, :] = taps
-        st_s[10:11, :] = ctrf
-        st_s[11:14, :] = p
-        st_s[14:17, :] = d
-        st_s[17:20, :] = tp
-        st_s[20:23, :] = L
-        st_s[23:26, :] = sh_o
-        st_s[26:29, :] = sh_d
-        st_s[29:32, :] = sh_tr
-        st_s[32:35, :] = sh_val
-        st_s[35:38, :] = cont_p
-        st_s[38:41, :] = cont_d
-        return (trips + 1, jnp.min(m))
+        trips, st = carry
+        st, fin, idx, L = _trip(st, P, fetch_dens, fetch_beam, lane, seed,
+                                S)
+        # each (sample, lane) slot is written once; masked-off lanes keep
+        # an in-range slot of their own
+        slot = jnp.where(fin, idx, 0) * (3 * npad) + lane
+        for c in range(3):
+            pl_triton.store(film_ref.at[slot + c * npad], L[c], mask=fin)
+        return trips + 1, st
 
     def cond(carry):
-        return (carry[0] < max_trips) & (carry[1] < 2.5)
+        return (carry[0] < max_trips) & _not_done(carry[1])
 
-    st_s[:] = jnp.zeros((48, B), jnp.float32)
-    st_s[4:5, :] = jnp.full((1, B), -1.0, jnp.float32)   # idx
-    st_s[14:17, :] = jnp.ones((3, B), jnp.float32)       # d (any unit-ish)
-    pend_s[:] = jnp.zeros((sppc * 3, B), jnp.float32)
-    out = jax.lax.while_loop(cond, body, (jnp.int32(0), jnp.float32(0.0)))
-    trips = out[0]
-    out_ref[0:sppc * 3, :] = pend_s[:]
-    out_ref[sppc * 3:sppc * 3 + 1, :] = st_s[8:9, :]
-    out_ref[sppc * 3 + 1:sppc * 3 + 2, :] = st_s[9:10, :]
-    out_ref[sppc * 3 + 2:sppc * 3 + 3, :] = jnp.broadcast_to(
-        trips.astype(jnp.float32), (1, B))
-    out_ref[sppc * 3 + 3:sppc * 3 + 4, :] = st_s[4:5, :]
+    trips, st = jax.lax.while_loop(
+        cond, body, (jnp.int32(0), _init_lanes((B,))))
+    stats_ref[0, :] = st.segs.astype(jnp.float32)
+    stats_ref[1, :] = st.taps.astype(jnp.float32)
+    stats_ref[2, :] = jnp.full((B,), trips.astype(jnp.float32))
+    stats_ref[3, :] = st.idx.astype(jnp.float32)
+
+
+def _walk_xla(S, max_trips, params, seed, dens, beam):
+    """The same walk over all npix lanes as one plain lax.while_loop."""
+    n = S.npix
+    lane = jnp.arange(n, dtype=jnp.int32)
+    film = jnp.zeros((S.sppc * 3 * n,), jnp.float32)
+
+    def body(carry):
+        trips, st, film = carry
+        st, fin, idx, L = _trip(st, lambda i: params[i], lambda i: dens[i],
+                                lambda i: beam[i], lane, seed, S)
+        slot = jnp.where(fin, idx * (3 * n) + lane, film.shape[0])
+        for c in range(3):
+            film = film.at[slot + c * n].set(L[c], mode="drop")
+        return trips + 1, st, film
+
+    def cond(carry):
+        return (carry[0] < max_trips) & _not_done(carry[1])
+
+    trips, st, film = jax.lax.while_loop(
+        cond, body, (jnp.int32(0), _init_lanes((n,)), film))
+    stats = jnp.stack([st.segs.astype(jnp.float32),
+                       st.taps.astype(jnp.float32),
+                       jnp.full((n,), trips.astype(jnp.float32)),
+                       st.idx.astype(jnp.float32)])
+    return film, stats
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("cfg", "sppc", "B", "interpret"),
+                   static_argnames=("cfg", "sppc", "route", "B", "interpret"),
                    keep_unused=True)
 def render_boxwalk(scene: Scene, cfg: RenderConfig, sppc: int, seed,
-                   pass_idx, B: int = 1024, interpret: bool = False):
+                   pass_idx, route: str = kernels_m.TRITON, B: int = 128,
+                   interpret: bool = False):
     """One sppc-sample pass; returns ((npix,3) radiance sum, stats) with
     render_wavefront-compatible stats (segments, taps, iters, unfinished).
-    """
+
+    route: kernels_m.TRITON runs the Pallas kernel in blocks of B lanes
+    (interpret=True runs it in the Pallas interpreter; B=128 measured
+    faster than 256 on the H100, PERF.md); kernels_m.XLA runs the same
+    per-trip body as a plain while_loop over all lanes."""
     H, W_img = cfg.height, cfg.width
     npix = H * W_img
     stride = 104729 % npix
-    assert sppc <= 64, "boxwalk: epoch rows capped at 64 spp per pass"
 
-    mega = megatrack.MegaTable(scene.media)
-    bricks = medium_m.DensityBricks(scene.media, dtype=jnp.bfloat16)
+    d = scene.media.density.data
+    if d.ndim == 4:
+        d = d[..., 0]
+    nz, ny, nx = d.shape
+    extent = scene.media.density.aabb_max - scene.media.density.aabb_min
+    res_v = jnp.array([nx, ny, nz], jnp.float32)
+    inv_h = jnp.maximum(res_v - 1.0, 1.0) / jnp.maximum(extent, 1e-30)
+    bricks = medium_m.DensityBricks(scene.media)
     beam = get_beam(scene)
-    beam_tab = jnp.transpose(build_beam_tau(scene, beam, bricks,
-                                            n=BEAM_N))      # (8, 256)
+    beam_tab = build_beam_tau(scene, beam, bricks, n=BEAM_N).reshape(-1)
     _, sa, ss, _, scale = medium_m.params(
         scene.media, jnp.zeros((1,), jnp.int32))
     sa, ss, scale = sa[0], ss[0], scale[0]
@@ -546,47 +584,59 @@ def render_boxwalk(scene: Scene, cfg: RenderConfig, sppc: int, seed,
         g.reshape(1),
         ss, stc_u * scale,
         (stm_u * scale).reshape(1), majorant.reshape(1),
-        scene.media.density.aabb_min, mega.inv_h,
+        scene.media.density.aabb_min, inv_h,
         w_real,
         eps.reshape(1),
     ]).astype(jnp.float32)
+    params = jnp.pad(params, (0, _P_NP - params.shape[0]))
+    dens = d.reshape(-1).astype(jnp.float32)
 
     seed_u = (jnp.asarray(seed, jnp.uint32)
               ^ (jnp.asarray(pass_idx, jnp.uint32)
                  * jnp.uint32(0x9E3779B9) + jnp.uint32(0x7F4A7C15)))
-    npad = -(-npix // B) * B
+    S = _Static(sppc, cfg.max_depth, cfg.rr_depth, W_img, H, npix, stride,
+                (nx, ny, nz))
     max_trips = sppc * (8 * cfg.max_depth + 48) + 256
-    kern = functools.partial(
-        _kernel, B, sppc, cfg.max_depth, cfg.rr_depth, W_img, H, npix,
-        stride, mega.res, mega.nb, max_trips)
-    out = pl.pallas_call(
-        kern,
-        grid=(npad // B,),
-        out_shape=jax.ShapeDtypeStruct((sppc * 3 + 4, npad), jnp.float32),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(mega.table.shape, lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(beam_tab.shape, lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((sppc * 3 + 4, B), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((48, B), jnp.float32),
-            pltpu.VMEM((sppc * 3, B), jnp.float32),
-        ],
-        interpret=interpret,
-    )(params, jnp.reshape(seed_u, (1,)), mega.table, beam_tab)
-    out = out[:, :npix]
-    film = jnp.zeros((npix, 3), jnp.float32)
-    pend = out[:sppc * 3].reshape(sppc, 3, npix)
+
+    if route == kernels_m.XLA:
+        film, stats = _walk_xla(S, max_trips, params, seed_u, dens, beam_tab)
+        n = npix
+    elif route == kernels_m.TRITON:
+        n = -(-npix // B) * B
+        film_spec = pl.BlockSpec((sppc * 3 * n,), lambda i: (0,))
+        film, stats = pl.pallas_call(
+            functools.partial(_kernel, S, max_trips),
+            grid=(n // B,),
+            out_shape=(
+                jax.ShapeDtypeStruct((sppc * 3 * n,), jnp.float32),
+                jax.ShapeDtypeStruct((4, n), jnp.float32),
+            ),
+            in_specs=[
+                pl.BlockSpec((_P_NP,), lambda i: (0,)),
+                pl.BlockSpec((1,), lambda i: (0,)),
+                pl.BlockSpec(dens.shape, lambda i: (0,)),
+                pl.BlockSpec(beam_tab.shape, lambda i: (0,)),
+                film_spec,
+            ],
+            out_specs=(film_spec, pl.BlockSpec((4, B), lambda i: (0, i))),
+            input_output_aliases={4: 0},
+            compiler_params=pl_triton.CompilerParams(num_warps=4,
+                                                     num_stages=1),
+            backend="triton",
+            interpret=interpret,
+            name="boxwalk",
+        )(params, jnp.reshape(seed_u, (1,)), dens, beam_tab,
+          jnp.zeros((sppc * 3 * n,), jnp.float32))
+    else:
+        raise ValueError(f"route={route!r}")
+
+    pend = film.reshape(sppc, 3, n)[:, :, :npix]
+    L = jnp.zeros((npix, 3), jnp.float32)
     for j in range(sppc):
-        film = film + jnp.roll(jnp.transpose(pend[j]), j * stride, axis=0)
-    segs = jnp.sum(out[sppc * 3]).astype(jnp.uint32)
-    taps = jnp.sum(out[sppc * 3 + 1]).astype(jnp.uint32)
-    iters = jnp.max(out[sppc * 3 + 2]).astype(jnp.int32)
-    unfinished = jnp.sum(
-        out[sppc * 3 + 3] < (sppc - 1)).astype(jnp.uint32)
-    return film, (segs, taps, iters, unfinished)
+        L = L + jnp.roll(jnp.transpose(pend[j]), j * stride, axis=0)
+    stats = stats[:, :npix]
+    segs = jnp.sum(stats[0].astype(jnp.int32)).astype(jnp.uint32)
+    taps = jnp.sum(stats[1].astype(jnp.int32)).astype(jnp.uint32)
+    iters = jnp.max(stats[2]).astype(jnp.int32)
+    unfinished = jnp.sum(stats[3] < (sppc - 1)).astype(jnp.uint32)
+    return L, (segs, taps, iters, unfinished)

@@ -3,7 +3,7 @@
 Reference: src/integrators/photonmapper/bre.cpp — the reference builds a
 BeamRadianceEstimator over the volume photon map (per-photon radii from a
 kNN pass, then each camera ray accumulates every photon disc it pierces,
-weighted by transmittance to the disc). TPU-native redesign:
+weighted by transmittance to the disc). Array-program redesign:
 
 * Volume photons are traced with the same distance-sampling machinery the
   path tracers use (medium.cpp analogues in models/medium.py) and binned

@@ -2,10 +2,10 @@
 Jensen et al. 2001).
 
 The reference precomputes an irradiance OCTREE over surface samples and
-hierarchically gathers R_d-weighted irradiance per shading point. TPU
-redesign: the irradiance cache is a dense (M,) array of area-weighted
+hierarchically gathers R_d-weighted irradiance per shading point.
+Array-program redesign: the irradiance cache is a dense (M,) array of area-weighted
 surface samples (no tree — the gather is a chunked (n_pix, M) pairwise
-R_d evaluation, which is exactly the dense regular compute TPUs want; at
+R_d evaluation, which is exactly the dense regular compute accelerators want; at
 the reference's default sample densities M is a few thousand, so the full
 pairwise product is cheaper than any tree walk).
 

@@ -9,7 +9,7 @@ between current and proposed path by the acceptance probability
 (equal-deposition, Cline eq. 8) — the property that kills caustic "spike"
 noise that plain PT and even pssmlt leave behind.
 
-TPU redesign: chains are a fixed-width batch in PRIMARY SAMPLE SPACE
+Array-program redesign: chains are a fixed-width batch in PRIMARY SAMPLE SPACE
 (the pssmlt machinery's u-vector paths through the VECTOR sampler), so one
 jitted scan advances every chain in lockstep:
 

@@ -1,9 +1,9 @@
 """Irradiance caching (reference: src/integrators/misc/irrcache.cpp —
 Ward/Krivanek cache wrapped around a diffuse base integrator).
 
-TPU-native redesign: the reference's octree of lazily-inserted records
-with pointer traversal is replaced by a DENSE two-pass scheme that maps
-onto the MXU/VPU instead of branchy tree walks:
+Array-program redesign: the reference's octree of lazily-inserted records
+with pointer traversal is replaced by a DENSE two-pass scheme of batched
+dense arithmetic instead of branchy tree walks:
 
 1. **Record pass**: cache sites are a stratified subsample of the first
    diffuse camera hits (every k-th pixel). Each site's indirect

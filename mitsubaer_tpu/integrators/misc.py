@@ -119,7 +119,7 @@ def render_adaptive(scene: Scene, cfg: RenderConfig, seed: int = 0,
     falls under max_error * mean (the reference's averageLuminance-relative
     criterion), cap total samples at max_sample_factor * spp.
 
-    TPU shape note: XLA programs are fixed-width, so converged pixels still
+    Shape note: XLA programs are fixed-width, so converged pixels still
     occupy lanes in later passes; their samples are simply not accumulated
     (each pixel divides by its own sample count — unbiased per pixel). The
     reference's win is reallocating CPU time; ours is the same variance

@@ -4,7 +4,7 @@
 Reference: src/integrators/photonmapper/{photonmapper,ppm,sppm}.cpp over the
 kd-tree photon map (src/librender/{photon,photonmap,gatherproc}.cpp).
 
-TPU-native redesign: the pointer-based balanced kd-tree is replaced by a
+Array-program redesign: the pointer-based balanced kd-tree is replaced by a
 **sorted uniform hash grid** — photons are binned to grid cells, sorted by
 cell id (one XLA sort), and cell segments located by searchsorted. A gather
 then scans the 27 neighbor cells with a *bounded* per-cell photon budget —

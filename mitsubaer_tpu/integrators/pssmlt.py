@@ -6,7 +6,7 @@ ordinary path sampler; acceptance is by path luminance, and both proposal
 and current states splat with the Kelemen MIS weights. Two-stage
 normalization estimates the average image luminance b by plain Monte Carlo.
 
-TPU-native redesign: thousands of INDEPENDENT chains run as wavefront lanes
+Array-program redesign: thousands of INDEPENDENT chains run as wavefront lanes
 (the reference runs one chain per worker thread, pssmlt_proc.cpp); each
 mutation step re-traces every chain's path with the VECTOR (replayable)
 sampler (core/rng.py; = the reference's ReplayableSampler, rsampler.cpp).

@@ -8,7 +8,7 @@ also the general (s>=1, t=1) light-image family of the reference's BDPT
 (bdpt_proc.cpp putLightSample), generalizing the collimated-beam splat pass
 (integrators/render.py beam_splat_pass) to all emitters and path lengths.
 
-TPU design: a fixed-width particle wavefront advanced by a bounded
+Array-program design: a fixed-width particle wavefront advanced by a bounded
 batch-synchronous loop; camera connections use the same attenuated
 visibility walker as camera-side NEE, and land on the film through ONE
 scatter-add per bounce (the only scatter in the engine; particle counts are

@@ -320,36 +320,15 @@ def render(scene: Scene, cfg: RenderConfig = None, spp: int = None, seed: int = 
     if spp_per_pass is None:
         # bound wavefront to ~2^21 lanes to fit memory comfortably
         spp_per_pass = max(1, min(cfg.spp, (1 << 21) // max(npix, 1)))
-    if (cfg.integrator == "volpath_er" and cfg.er_host_stepped
-            and cfg.n_frames == 1):
-        from . import volpath_er as er_m
-
-        splat_j = functools.partial(jax.jit, static_argnames=("cfg",),
-                                    keep_unused=True)(
-            lambda accum, values, jit_r, cfg: film_m.splat(
-                accum, values, jit_r, cfg.filter))
-        accum = film_m.new_accumulator(cfg)
-        done = 0
-        pass_idx = 0
-        with stats.timed("render.wall"):
-            while done < cfg.spp:
-                sppc = min(spp_per_pass, cfg.spp - done)
-                sink, jitter = er_m.render_er_host_stepped(
-                    scene, cfg, sppc, jnp.asarray(seed, jnp.uint32),
-                    jnp.asarray(pass_idx, jnp.uint32))
-                values = sink.steady.reshape(sppc, cfg.height, cfg.width, 3)
-                jit_r = jitter.reshape(sppc, cfg.height, cfg.width, 2)
-                accum = splat_j(accum, values, jit_r, cfg)
-                done += sppc
-                pass_idx += 1
-        return film_m.develop(accum)
     if _use_wavefront(cfg):
+        from ..core import kernels as kernels_m
         from . import boxwalk as bw_m
 
         hd = _has_direct(scene)
-        use_bw = (jax.default_backend() == "tpu"
+        use_bw = (kernels_m.route(cfg.kernels) == kernels_m.TRITON
                   and bw_m.supported(scene, cfg))
         L = jnp.zeros((cfg.height * cfg.width, 3), jnp.float32)
+        segs = jnp.zeros((), jnp.uint32)
         done = 0
         pass_idx = 0
         if spp_per_pass is None:
@@ -360,22 +339,24 @@ def render(scene: Scene, cfg: RenderConfig = None, spp: int = None, seed: int = 
             while done < cfg.spp:
                 sppc = min(spp_per_pass, cfg.spp - done)
                 if use_bw:
-                    # whole-path Pallas renderer for the bounded-volume
-                    # scene class (integrators/boxwalk.py)
-                    Lb, _ = bw_m.render_boxwalk(
+                    # whole-path kernel for the bounded-volume scene class
+                    # (integrators/boxwalk.py)
+                    Lb, st = bw_m.render_boxwalk(
                         scene, cfg, sppc, jnp.asarray(seed, jnp.uint32),
                         jnp.asarray(pass_idx, jnp.uint32))
                     L = L + Lb
                 else:
-                    L, _ = render_pass_wavefront(
+                    L, st = render_pass_wavefront(
                         scene, L, cfg, sppc, jnp.asarray(seed, jnp.uint32),
                         jnp.asarray(pass_idx, jnp.uint32), has_direct=hd,
                         any_het=_any_het(scene))
+                segs = segs + st[0]
                 done += sppc
                 pass_idx += 1
                 stats.counter_add("render.passes")
                 stats.counter_add("render.camera_rays",
                                   cfg.width * cfg.height * sppc)
+            stats.counter_add("render.segments", int(segs))
         img = (L / jnp.float32(cfg.spp)).reshape(cfg.height, cfg.width, 3)
         if cfg.integrator.startswith("volpath") and _has_beam(scene):
             n_splat = 4 * npix

@@ -7,7 +7,7 @@ reference uses this as its preview/GI integrator; here it completes the
 integrator inventory and doubles as a many-light validation path (on a
 diffuse scene VPL shading equals path tracing up to the distance clamp).
 
-TPU design: VPL generation is one short batched light walk (reusing the
+Array-program design: VPL generation is one short batched light walk (reusing the
 ptracer emission sampling); shading is a `lax.scan` over VPLs where each
 step evaluates the (npix*spp)-wide camera-hit batch against ONE VPL —
 camera-side BSDF, VPL-side kernel, clamped geometry term, and a

@@ -1,6 +1,6 @@
 """Persistent-wavefront volumetric path tracer (forward rendering engine).
 
-TPU-native redesign of the hot render loop. The previous engine
+Array-program redesign of the hot render loop. The previous engine
 (integrators/volpath.py) nests batch-synchronous `lax.while_loop`s: per
 bounce it runs a Woodcock loop, then a shadow-tracking loop, each at full
 wavefront width until the *slowest* lane converges — measured occupancy on
@@ -120,7 +120,7 @@ class WFState(NamedTuple):
     #   buffer folds into the film with ONE roll once every lane passed j.
     #   The ring (E=4) replaces the previous (sppc,n,3) slots array whose
     #   32 masked slot-writes per event pass dominated state traffic;
-    #   in-loop scatters to the film would serialize catastrophically on TPU.
+    #   in-loop scatters to the film would serialize catastrophically.
     film: jnp.ndarray         # (n,3) pixel-space film accumulator (drained)
     drained: jnp.ndarray      # () int32 epochs folded into film so far
     tap_ctr: jnp.ndarray      # (n,) uint32 tracking-RNG counter
@@ -702,95 +702,13 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed,
     macro = medium_m.MacroMajorant(media, m=cfg.wf_dda) \
         if (cfg.wf_dda > 0 and any_het) else None
 
-    from . import megatrack
-    _mega_on = any_het and (
-        cfg.wf_track_mega == 1
-        or (cfg.wf_track_mega < 0 and jax.default_backend() == "tpu"
-            and megatrack.MegaTable.fits(media)))
-    mega = megatrack.MegaTable(media) if _mega_on else None
-    _mega_interp = jax.default_backend() != "tpu"
-
     # ------------------------------------------------------------------
     def tracking_iter(st: WFState, K: int = 1, compact: int = 0) -> WFState:
-        if mega is not None:
-            return tracking_mega(st)
         if compact > 0:
             return tracking_ladder(st)
         if macro is not None:
             return tracking_dda(st, K)
         return tracking_full(st, K)
-
-    def tracking_mega(st: WFState) -> WFState:
-        """Tracking-to-completion via the Pallas megapass
-        (integrators/megatrack.py). Packs the per-lane tracking state as
-        (24, n) rows (a stack of contiguous (n,) arrays — no transposes),
-        runs every lane's pending majorant jumps in one kernel with
-        per-block adaptive trip counts, and merges the outcome rows."""
-        do_sh = st.sh_active & ~st.sh_need_isect & (st.sh_t < st.sh_seg)
-        do_ext = ~do_sh & st.ext_tracking
-        need = do_sh | do_ext
-
-        med = jnp.where(do_sh, st.sh_med, st.medium)
-        kind, sa, ss, _, scale = _medium_params(scene, med)
-        st_color = sa + ss
-        st_mean = jnp.mean(st_color, axis=-1)
-        majorant = jax.lax.stop_gradient(jnp.maximum(
-            media.majorant * jnp.max(st_color, axis=-1), 1e-6))
-        w_real = ss / jnp.maximum(st_mean, 1e-12)[..., None]
-
-        t_cur = jnp.where(do_sh, st.sh_t, st.ext_t)
-        o_cur = jnp.where(do_sh[..., None], st.sh_o, st.o)
-        d_cur = jnp.where(do_sh[..., None], st.sh_d, st.d)
-        t_lim = jnp.where(do_sh, st.sh_seg, st.t_far)
-        o_vox = (o_cur - mega.aabb_min) * mega.inv_h
-        d_vox = d_cur * mega.inv_h
-        f32 = jnp.float32
-        z = jnp.zeros((n,), f32)
-        rows = jnp.stack([
-            o_vox[:, 0], o_vox[:, 1], o_vox[:, 2],
-            d_vox[:, 0], d_vox[:, 1], d_vox[:, 2],
-            t_cur, t_lim, majorant,
-            st_mean * scale,
-            st_color[:, 0] * scale, st_color[:, 1] * scale,
-            st_color[:, 2] * scale,
-            w_real[:, 0], w_real[:, 1], w_real[:, 2],
-            do_sh.astype(f32), need.astype(f32),
-            z, z, z, z, z, z,
-        ], axis=0)
-        out, ctr_out = megatrack.run(
-            rows, st.tap_ctr.astype(jnp.int32)[None, :], mega.table,
-            tap_seed, B=cfg.wf_mega_block,
-            max_trips=cfg.wf_mega_trips, res=mega.res, nb=mega.nb,
-            interpret=_mega_interp)
-        t_b = out[0]
-        fac_b = jnp.moveaxis(out[1:4], 0, 1)          # (n,3)
-        hit_b = out[4] > 0.5
-        res_b = (out[5] > 0.5) & need
-        taps_b = out[6]
-        ctr_b = ctr_out[0].astype(jnp.uint32)
-
-        p_ext = need & ~do_sh
-        p_sh = need & do_sh
-        ext_w = jnp.where(p_ext[..., None], st.ext_w * fac_b, st.ext_w)
-        ext_t = jnp.where(p_ext, t_b, st.ext_t)
-        ext_resolved = p_ext & res_b
-        ext_tracking = st.ext_tracking & ~ext_resolved
-        ext_done = st.ext_done | ext_resolved
-        ext_scat = jnp.where(ext_resolved, hit_b, st.ext_scat)
-        sh_tr = jnp.where(p_sh[..., None],
-                          jnp.maximum(st.sh_tr * fac_b, 0.0), st.sh_tr)
-        sh_t = jnp.where(p_sh, t_b, st.sh_t)
-        tap_ctr = jnp.where(need, ctr_b, st.tap_ctr)
-        n_taps = st.n_taps + jnp.sum(
-            jnp.where(need, taps_b, 0.0)).astype(jnp.uint32)
-        track_work = jnp.any(
-            (st.sh_active & ~st.sh_need_isect & (sh_t < st.sh_seg))
-            | ext_tracking)
-        return st._replace(
-            ext_tracking=ext_tracking, ext_done=ext_done, ext_scat=ext_scat,
-            ext_t=ext_t, ext_w=ext_w, sh_tr=sh_tr, sh_t=sh_t,
-            tap_ctr=tap_ctr, n_taps=n_taps, track_work=track_work,
-        )
 
     def tracking_full(st: WFState, K: int = 1) -> WFState:
         """K majorant jumps per lane in ONE pass: shadow ratio-tracking has
@@ -905,7 +823,7 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed,
         tentative positions (density-independent, like the global-majorant
         case) feed ONE batched brick gather, and accept/terminate decisions
         resolve in registers. Reference context: heterogeneous.cpp:420
-        tracks against the single global maximum; the macro grid is the TPU
+        tracks against the single global maximum; the macro grid is this framework's
         refinement (see medium_m.MacroMajorant)."""
         H = cfg.wf_dda_hops
         do_sh = st.sh_active & ~st.sh_need_isect & (st.sh_t < st.sh_seg)
@@ -1037,12 +955,9 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed,
         """Compacted K-jump tracking pass (r5 rework): only ~active-many
         lanes issue density lookups.
 
-        The full-width engine wastes ~80% of its lookup cost on idle lanes
-        (measured 2.99 useful taps/sample vs K slots/lane/pass at ~6.8
-        ns/lane-slot). r5 probes (scripts/probe_scatter_r5.py) re-measured
-        the pack/unpack atoms and overturned the r3/r4 "compaction cannot
-        pay" conclusion: a W-row unique scatter is ~11 ns/row (0.7 ms @65k),
-        a (W,12) pack gather ~9 ns/row, sort_key_val 0.14 ms @262k. Design:
+        The full-width engine spends most of its lookup cost on idle
+        lanes; compaction trades that for a sort plus a pack gather and an
+        unpack scatter. Design:
           1. sort (need ? lane : BIG) -> first W sorted values are the
              active lanes (the caller's width ladder guarantees W >= count,
              so there are no overflow-delayed lanes);

@@ -9,8 +9,8 @@ MIS). The h-dielectric (hdielectric.cpp:115) takes its IOR per-lane from the
 RIF via `eta_override`.
 
 Every lobe is evaluated branchlessly for the whole wavefront and selected by
-the per-lane `kind` — with O(10) BSDF types this trades a few VPU flops for
-zero divergence, the right trade on TPU.
+the per-lane `kind` — with O(10) BSDF types this trades a few flops for
+zero divergence in a wide array program.
 """
 from __future__ import annotations
 

@@ -14,13 +14,13 @@ connects a medium vertex to a target point: the reference uses Ceres BFGS
 over the endpoint error with forward-sensitivity Jacobians dp/dv0, dv/dv0
 propagated alongside the ray (er_derivativestep, :798-814, needs the RIF
 Hessian). Here the solver is a batched damped Newton (Levenberg) iteration —
-every pending connection in the wavefront iterates in lockstep on the VPU;
+every pending connection in the wavefront iterates in lockstep;
 failures are russian-rouletted exactly like the reference (:1146-1155).
 
 RIF backends: analytic fields (constant / linear / radial-Gaussian /
 ultrasound Bessel, covering the reference's scene generators
 mfiles/createLinearRIFWithBox.m + src/volume/acousticrifvolume.cpp) evaluate
-closed-form value/gradient/Hessian on the VPU — the fast path; general
+closed-form value/gradient/Hessian — the fast path; general
 voxel grids use the cubic B-spline interpolator (core/spline.py ==
 basisspline.h) and are the differentiable path for RIF reconstruction.
 
@@ -35,9 +35,14 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from ..core import kernels as kernels_m
 from ..core import spline
 from ..core.math import dot, length, normalize, safe_sqrt, sgn
 from ..scene.types import Media
+
+# The 3x3 products below feed Newton solves and gradients: keep them in
+# full f32 (a GPU runs DEFAULT-precision f32 dots in TF32).
+_HI = jax.lax.Precision.HIGHEST
 
 # RIF kinds (media.rif_kind)
 RIF_CONST = 0
@@ -138,45 +143,72 @@ class RifField(NamedTuple):
     coeff: jnp.ndarray    # spline coefficients (nz, ny, nx)
     aabb_min: jnp.ndarray
     aabb_max: jnp.ndarray
+    kinds: tuple = ()     # static: the RIF kinds `kind` can take; only
+    #                       these branches are compiled (() = all kinds)
 
 
-def rif_from_media(media: Media) -> RifField:
+# `kinds` is static pytree metadata, not a leaf: it selects code at trace time
+jax.tree_util.register_pytree_node(
+    RifField,
+    lambda f: ((f.kind, f.params, f.coeff, f.aabb_min, f.aabb_max), f.kinds),
+    lambda kinds, ch: RifField(*ch, kinds=kinds))
+
+
+def rif_from_media(media: Media, kinds: tuple = ()) -> RifField:
+    """kinds: RenderConfig.rif_kinds (the scene's static RIF kind set)."""
     return RifField(
         kind=media.rif_kind,
         params=media.rif_params,
         coeff=media.rif_coeff,
         aabb_min=media.rif_min,
         aabb_max=media.rif_max,
+        kinds=tuple(kinds),
     )
 
 
-def _rif_analytic(kind, prm, p, need_hess: bool):
-    """Closed-form value/grad/Hessian for analytic RIF kinds (batched)."""
+def _rif_analytic(kind, prm, p, need_hess: bool, kinds: tuple = ()):
+    """Closed-form value/grad/Hessian for analytic RIF kinds (batched).
+    Only the kinds in `kinds` (all if empty) are compiled: the acoustic
+    branch alone is most of an eikonal program's size."""
+    def on(k):
+        return not kinds or k in kinds
+
     n = p.shape[0]
     zero3 = jnp.zeros((n, 3), jnp.float32)
     zero33 = jnp.zeros((n, 3, 3), jnp.float32)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=jnp.float32), (n, 3, 3))
 
-    # constant
-    v_c = jnp.full((n,), prm[0])
+    # constant (also the value of kinds without a closed form here)
+    val = jnp.full((n,), prm[0])
+    grad = zero3
+    H = zero33
 
-    # linear
-    g_vec = prm[1:4]
-    v_l = prm[0] + p @ g_vec
-    g_l = jnp.broadcast_to(g_vec, (n, 3))
+    if on(RIF_LINEAR):
+        g_vec = prm[1:4]
+        v_l = prm[0] + jnp.dot(p, g_vec, precision=_HI)
+        val = jnp.where(kind == RIF_LINEAR, v_l, val)
+        grad = jnp.where(kind == RIF_LINEAR, jnp.broadcast_to(g_vec, (n, 3)),
+                         grad)
 
-    # radial gaussian: n0 + a exp(-r^2/w^2)
-    c = prm[3:6]
-    w2 = jnp.maximum(prm[2] * prm[2], 1e-12)
-    dp = p - c
-    r2 = dot(dp, dp)
-    e = prm[1] * jnp.exp(-r2 / w2)
-    v_r = prm[0] + e
-    g_r = (-2.0 / w2) * e[..., None] * dp
-    H_r = (-2.0 / w2) * (
-        e[..., None, None] * eye
-        + dp[..., :, None] * g_r[..., None, :]
-    )
+    if on(RIF_RADIAL):
+        # radial gaussian: n0 + a exp(-r^2/w^2)
+        c = prm[3:6]
+        w2 = jnp.maximum(prm[2] * prm[2], 1e-12)
+        dp = p - c
+        r2 = dot(dp, dp)
+        e = prm[1] * jnp.exp(-r2 / w2)
+        g_r = (-2.0 / w2) * e[..., None] * dp
+        val = jnp.where(kind == RIF_RADIAL, prm[0] + e, val)
+        grad = jnp.where(kind == RIF_RADIAL, g_r, grad)
+        if need_hess:
+            H_r = (-2.0 / w2) * (
+                e[..., None, None] * eye
+                + dp[..., :, None] * g_r[..., None, :]
+            )
+            H = jnp.where(kind == RIF_RADIAL, H_r, H)
+
+    if not on(RIF_ACOUSTIC):
+        return val, grad, (H if need_hess else None)
 
     # acoustic: n0 + nmax J_mode(kr r_perp) cos(mode phi), r_perp/phi in the
     # y-z plane, beam along +x (acousticrifvolume.cpp:240-330 — arbitrary
@@ -216,28 +248,18 @@ def _rif_analytic(kind, prm, p, need_hess: bool):
     g_yz, (Jm_v, cmp_v) = _ac_grad(yz)
     v_a = prm[0] + A_ac * Jm_v * cmp_v
     g_a = jnp.concatenate([jnp.zeros_like(g_yz[..., :1]), g_yz], axis=-1)
-    if need_hess:
-        H_yz = jax.vmap(jax.jacfwd(lambda w: _ac_grad(w[None])[0][0]))(yz)
-        H_a = zero33.at[..., 1:, 1:].set(0.5 * (H_yz
-                                                + jnp.swapaxes(H_yz, -1, -2)))
-    else:
-        H_a = zero33
-
-    val = jnp.where(kind == RIF_LINEAR, v_l, v_c)
-    val = jnp.where(kind == RIF_RADIAL, v_r, val)
     val = jnp.where(kind == RIF_ACOUSTIC, v_a, val)
-    grad = jnp.where(kind == RIF_LINEAR, g_l, zero3)
-    grad = jnp.where(kind == RIF_RADIAL, g_r, grad)
     grad = jnp.where(kind == RIF_ACOUSTIC, g_a, grad)
     if not need_hess:
         return val, grad, None
-    H = jnp.where(kind == RIF_RADIAL, H_r, zero33)
-    H = jnp.where(kind == RIF_ACOUSTIC, H_a, H)
-    return val, grad, H
+    H_yz = jax.vmap(jax.jacfwd(lambda w: _ac_grad(w[None])[0][0]))(yz)
+    H_a = zero33.at[..., 1:, 1:].set(0.5 * (H_yz
+                                            + jnp.swapaxes(H_yz, -1, -2)))
+    return val, grad, jnp.where(kind == RIF_ACOUSTIC, H_a, H)
 
 
 def rif_value(f: RifField, p):
-    v, _, _ = _rif_analytic(f.kind, f.params, p, False)
+    v, _, _ = _rif_analytic(f.kind, f.params, p, False, f.kinds)
     if f.coeff.size > 1:
         grid = spline.SplineGrid3D(f.coeff, f.aabb_min, f.aabb_max)
         v = jnp.where(f.kind == RIF_SPLINE, spline.value(grid, p), v)
@@ -245,7 +267,7 @@ def rif_value(f: RifField, p):
 
 
 def rif_value_grad(f: RifField, p):
-    v, g, _ = _rif_analytic(f.kind, f.params, p, False)
+    v, g, _ = _rif_analytic(f.kind, f.params, p, False, f.kinds)
     if f.coeff.size > 1:
         grid = spline.SplineGrid3D(f.coeff, f.aabb_min, f.aabb_max)
         vs, gs = spline.value_gradient(grid, p)
@@ -256,7 +278,7 @@ def rif_value_grad(f: RifField, p):
 
 
 def rif_value_grad_hess(f: RifField, p):
-    v, g, H = _rif_analytic(f.kind, f.params, p, True)
+    v, g, H = _rif_analytic(f.kind, f.params, p, True, f.kinds)
     if f.coeff.size > 1:
         grid = spline.SplineGrid3D(f.coeff, f.aabb_min, f.aabb_max)
         vs, gs, Hs = spline.value_gradient_hessian(grid, p)
@@ -341,26 +363,29 @@ def er_step(rif: RifField, p, v, h):
     return p, v, h * n0
 
 
-def _er_kernel_ok(rif: RifField, sdf: SdfField, differentiable: bool):
-    """Static part of the ER-march kernel gate: forward-only, analytic
-    (non-spline) RIF and SDF, TPU backend. The RIF *kind* is a runtime
-    value — callers pair this with a lax.cond on kind <= RIF_RADIAL so
-    acoustic lanes take the XLA path (models/ermarch.py scope)."""
-    return (not differentiable and rif.coeff.size <= 1
-            and sdf.coeff.size <= 1
-            and jax.default_backend() == "tpu")
+def _er_kernel_on(rif: RifField, sdf: SdfField, differentiable: bool,
+                  kernels: str) -> bool:
+    """Static part of the ER-march kernel gate: the route chosen by
+    core/kernels.py, forward-only, analytic (non-spline) RIF and SDF. The
+    RIF *kind* is a runtime value — callers pair this with a lax.cond on
+    kind <= RIF_RADIAL so acoustic lanes take the XLA path
+    (models/ermarch.py scope)."""
+    return (kernels_m.route(kernels) == kernels_m.TRITON
+            and not differentiable and rif.coeff.size <= 1
+            and sdf.coeff.size <= 1)
 
 
 def trace_curved(rif: RifField, sdf: SdfField, p, v, distance, h,
-                 max_steps: int, active, differentiable: bool = False):
+                 max_steps: int, active, differentiable: bool = False,
+                 kernels: str = "auto"):
     """March a batch of curved rays a given arc distance, stopping at the
     medium boundary (trace(), :671-691). Returns
     (p, v, optical_len, dist_marched, exited, steps).
 
-    On TPU with analytic RIF/SDF the march runs in the Pallas kernel
-    (models/ermarch.py) — the XLA while_loop pays tens of microseconds of
-    dispatch per velocity-Verlet step regardless of batch width."""
-    if _er_kernel_ok(rif, sdf, differentiable):
+    With analytic RIF/SDF on the kernel route the march runs in the Pallas
+    kernel (models/ermarch.py): an XLA while_loop pays a round of kernel
+    launches and a predicate read-back per velocity-Verlet step."""
+    if _er_kernel_on(rif, sdf, differentiable, kernels):
         from . import ermarch
 
         def _kern(_):
@@ -463,24 +488,28 @@ def er_derivative_step(rif: RifField, p, v, dpdv0, dvdv0, h):
     hhm = hh[..., None] if jnp.ndim(h) else h
     n0, g0, H0 = rif_value_grad_hess(rif, p)
     v = v + 0.5 * hh * g0
-    dvdv0 = dvdv0 + 0.5 * hhm * jnp.einsum("...ij,...jk->...ik", H0, dpdv0)
+    dvdv0 = dvdv0 + 0.5 * hhm * jnp.einsum("...ij,...jk->...ik", H0, dpdv0,
+                                             precision=_HI)
     p = p + hh * v / n0[..., None]
     n1, g1, H1 = rif_value_grad_hess(rif, p)
     invn = 1.0 / n1
     # d(p step) = h [ -1/n^2 v (g . dpdv0) + 1/n dvdv0 ]
     vg = jnp.einsum("...i,...j->...ij", v, g1)
     dpdv0 = dpdv0 + hhm * (
-        -(invn * invn)[..., None, None] * jnp.einsum("...ij,...jk->...ik", vg, dpdv0)
+        -(invn * invn)[..., None, None]
+        * jnp.einsum("...ij,...jk->...ik", vg, dpdv0, precision=_HI)
         + invn[..., None, None] * dvdv0
     )
     v = v + 0.5 * hh * g1
-    dvdv0 = dvdv0 + 0.5 * hhm * jnp.einsum("...ij,...jk->...ik", H1, dpdv0)
+    dvdv0 = dvdv0 + 0.5 * hhm * jnp.einsum("...ij,...jk->...ik", H1, dpdv0,
+                                             precision=_HI)
     return p, v, dpdv0, dvdv0
 
 
 def integrate_with_sensitivities(rif: RifField, sdf: SdfField, p1, v0, p2,
                                  h, max_steps: int, active,
-                                 differentiable: bool = False):
+                                 differentiable: bool = False,
+                                 kernels: str = "auto"):
     """computefdfBDPT core (:816-939): integrate from p1 with initial scaled
     velocity v0 until passing the plane where (p - p2) . v changes sign or
     exiting the shape; returns endpoint error + its Jacobian w.r.t. v0.
@@ -538,7 +567,7 @@ def integrate_with_sensitivities(rif: RifField, sdf: SdfField, p1, v0, p2,
         )
         return pp, vv, dp_, dv_, opt_, mar_, ex_
 
-    if _er_kernel_ok(rif, sdf, differentiable):
+    if _er_kernel_on(rif, sdf, differentiable, kernels):
         from . import ermarch
 
         def _march_kern(_):
@@ -556,7 +585,8 @@ def integrate_with_sensitivities(rif: RifField, sdf: SdfField, p1, v0, p2,
     # dt_b/dv0 from the implicit boundary condition (:920-927)
     dpdt_b = v / nb[..., None]
     denom = jnp.where(jnp.abs(dot(N_b, dpdt_b)) > 1e-9, dot(N_b, dpdt_b), 1e9)
-    dtbdv0 = -jnp.einsum("...i,...ij->...j", N_b, dpdv0) / denom[..., None]
+    dtbdv0 = -jnp.einsum("...i,...ij->...j", N_b, dpdv0,
+                         precision=_HI) / denom[..., None]
     _, g_b = rif_value_grad(rif, p)
     v_refr, tir = boundary_velocity(v, N_b, nb, jnp.ones_like(nb))
     # refraction Jacobian (boundaryVelocityDerivative, :1057-1074)
@@ -572,9 +602,10 @@ def integrate_with_sensitivities(rif: RifField, sdf: SdfField, p1, v0, p2,
             "...i,...j->...ij", N_b,
             (r[..., None] * v + dotp[..., None] * N_b) / sq[..., None],
         ),
-        inner,
+        inner, precision=_HI,
     )
-    refl_J = jnp.einsum("...ij,...jk->...ik", eye3 - 2.0 * NN, inner)
+    refl_J = jnp.einsum("...ij,...jk->...ik", eye3 - 2.0 * NN, inner,
+                        precision=_HI)
     dvdv0_b = jnp.where(tir[..., None, None], refl_J, refr_J)
 
     extra_t = -dot(v_refr, p - p2) / jnp.maximum(dot(v_refr, v_refr), 1e-12)
@@ -595,8 +626,8 @@ def integrate_with_sensitivities(rif: RifField, sdf: SdfField, p1, v0, p2,
     dpdv0_eff = jnp.where(exited[..., None, None], dpdv0_b, dpdv0)
     dvdv0_eff = jnp.where(exited[..., None, None], dvdv0_b, dvdv0)
     num = (
-        jnp.einsum("...i,...ij->...j", v_eff, dpdv0_eff)
-        + jnp.einsum("...i,...ij->...j", p - p2, dvdv0_eff)
+        jnp.einsum("...i,...ij->...j", v_eff, dpdv0_eff, precision=_HI)
+        + jnp.einsum("...i,...ij->...j", p - p2, dvdv0_eff, precision=_HI)
     )
     den = dot(v_eff, dpdt) + dot(p - p2, dvdt)
     dtstar = -num / jnp.where(jnp.abs(den) > 1e-9, den, 1e9)[..., None]
@@ -632,9 +663,8 @@ class BVPResult(NamedTuple):
 
 
 def _solve33(A, b):
-    """Batched 3x3 solve by the adjugate (Cramer): pure VPU arithmetic —
-    cheaper than the LU path of jnp.linalg.solve and avoids a batched-LU
-    kernel observed to hard-crash the TPU worker at large batch sizes."""
+    """Batched 3x3 solve by the adjugate (Cramer): pure elementwise
+    arithmetic — cheaper than the batched-LU path of jnp.linalg.solve."""
     a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     a10, a11, a12 = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
     a20, a21, a22 = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
@@ -658,7 +688,7 @@ def _solve33(A, b):
 
 def _levenberg_solve(rif: RifField, sdf: SdfField, p1, p2, v0, h,
                      max_steps: int, active, tol2: float,
-                     max_iters: int = 12):
+                     max_iters: int = 12, kernels: str = "auto"):
     """Convergence-masked Levenberg-Marquardt over the endpoint error with
     real accept/reject (replaces Ceres line-search BFGS, options :215-227):
     a trial step is kept only if it decreases the cost; rejected steps
@@ -670,14 +700,15 @@ def _levenberg_solve(rif: RifField, sdf: SdfField, p1, p2, v0, h,
 
     def eval_err(v, act):
         err, J, *_ = integrate_with_sensitivities(
-            rif, sdf, p1, v, p2, h, max_steps, act, differentiable=False)
+            rif, sdf, p1, v, p2, h, max_steps, act, differentiable=False,
+            kernels=kernels)
         return err, J
 
     def lm_step(err, J, lam):
         JT = jnp.swapaxes(J, -1, -2)
-        A = jnp.einsum("...ij,...jk->...ik", JT, J)
+        A = jnp.einsum("...ij,...jk->...ik", JT, J, precision=_HI)
         A = A + (lam[..., None, None] + 1e-9) * eyeb
-        b = -jnp.einsum("...ij,...j->...i", JT, err)
+        b = -jnp.einsum("...ij,...j->...i", JT, err, precision=_HI)
         return _solve33(A, b)
 
     err0, J0 = eval_err(v0, active)
@@ -726,7 +757,8 @@ def solve_bvp(rif: RifField, sdf: SdfField, p1, p2, init_dir, h,
               max_steps: int, active, tol2: float = 1e-6,
               newton_iters: int = 12, differentiable: bool = False,
               rr_weight: float = 1e-2, seed_bits=None,
-              max_restarts: int = 0, dir_match_tol2: float = 1e-4):
+              max_restarts: int = 0, dir_match_tol2: float = 1e-4,
+              kernels: str = "auto"):
     """Solve the curved-connection BVP for the initial velocity p1 -> p2.
 
     With max_restarts == 0 (or no seed_bits): a single deterministic solve
@@ -762,6 +794,7 @@ def solve_bvp(rif: RifField, sdf: SdfField, p1, p2, init_dir, h,
             newton_iters=newton_iters, differentiable=False,
             rr_weight=rr_weight, seed_bits=seed_bits,
             max_restarts=max_restarts, dir_match_tol2=dir_match_tol2,
+            kernels=kernels,
         )
         v_fin_sg = res_sg.dir_to_target
         r0 = rif_value(rif, p1)
@@ -783,7 +816,7 @@ def solve_bvp(rif: RifField, sdf: SdfField, p1, p2, init_dir, h,
         # legacy single-shot solve from init_dir (weight 1, caller retries)
         v_fin, cost = _levenberg_solve(
             rif, sdf, p1, p2, init_dir * r0[..., None], h, max_steps, active,
-            tol2, max_iters=newton_iters)
+            tol2, max_iters=newton_iters, kernels=kernels)
         conv_final = active & (cost < tol2)
         d_final = normalize(v_fin)
         weight = jnp.ones((n,))
@@ -817,7 +850,8 @@ def solve_bvp(rif: RifField, sdf: SdfField, p1, p2, init_dir, h,
         d0_all = jnp.concatenate([round_dir(r) for r in range(B)], axis=0)
         v_fin_all, cost_all = _levenberg_solve(
             rif, sdf, tile(p1), tile(p2), d0_all * tile(r0)[..., None],
-            h, max_steps, tile(active), tol2, max_iters=newton_iters)
+            h, max_steps, tile(active), tol2, max_iters=newton_iters,
+            kernels=kernels)
         conv_all = (cost_all < tol2).reshape(B, n) & active[None]
         d_all = normalize(v_fin_all).reshape(B, n, 3)
 
@@ -871,7 +905,7 @@ def solve_bvp(rif: RifField, sdf: SdfField, p1, p2, init_dir, h,
                 d0 = round_dir_dyn(r)
                 v_fin, cost = _levenberg_solve(
                     rif, sdf, p1, p2, d0 * r0[..., None], h, max_steps,
-                    st[0], tol2, max_iters=newton_iters)
+                    st[0], tol2, max_iters=newton_iters, kernels=kernels)
                 st = bookkeep(st, cost < tol2, normalize(v_fin), r)
                 return (st, r + 1)
 
@@ -901,7 +935,7 @@ def solve_bvp(rif: RifField, sdf: SdfField, p1, p2, init_dir, h,
     # (computePathLengthsTillClosestP2, :941-1030 — "can still fail")
     err, _, exited, opt, geo_in, geo_tot, v_end = integrate_with_sensitivities(
         rif, sdf, p1, d_final * r0[..., None], p2, h, max_steps, active,
-        differentiable=differentiable,
+        differentiable=differentiable, kernels=kernels,
     )
     cost = dot(err, err)
     converged = conv_final & (cost < tol2)

@@ -3,7 +3,7 @@
 Reference: src/films/hdrfilm.cpp + ImageBlock filter splatting
 (imageblock.h:103) + rfilters (box/tent/gaussian/mitchell/catmullrom/lanczos).
 
-TPU redesign: instead of scatter-based splatting, samples are organized
+Array-program redesign: instead of scatter-based splatting, samples are organized
 per-pixel (each lane knows its pixel), so filter reconstruction becomes a
 fixed set of *shifted dense adds*: for every tap offset (dx, dy) within the
 filter radius we weight all samples, reduce over spp, and add the shifted

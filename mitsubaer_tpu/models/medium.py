@@ -12,7 +12,7 @@ estimator structure:
   - heterogeneous: Woodcock tracking against the grid majorant
     (heterogeneous.cpp:420 invertDensityIntegral / Woodcock branch), with
     ratio-tracking transmittance for shadow rays (unbiased, unlike the
-    reference's Simpson quadrature — same expectation, TPU-friendly and
+    reference's Simpson quadrature — same expectation, accelerator-friendly and
     differentiable).
 
 All loops are batch-synchronous `lax.while_loop`s over the wavefront.
@@ -82,14 +82,13 @@ def density_at(media: Media, p):
 # ---------------------------------------------------------------------------
 # Bricked density access.
 #
-# XLA's TPU gather runs at a fixed per-ROW rate regardless of row width, so
-# the 8 scattered taps of a trilinear lookup cost 8x what one 128-float
-# row-gather does. We therefore repack the density grid into apron-padded
-# 8x4x4 bricks (x-fastest, 128 floats = one gather row): any trilinear
-# neighborhood whose base cell lies in the brick's 7x3x3 usable cells is
-# contained in ONE row. In-brick taps are then pure VPU one-hot reductions.
-# This is the TPU analogue of the reference's cache-friendly volume bricking
-# (volcache.cpp) — driven by gather economics instead of CPU caches.
+# The density grid is repacked into apron-padded 8x4x4 bricks (x-fastest,
+# 128 floats = one gather row): any trilinear neighborhood whose base cell
+# lies in the brick's 7x3x3 usable cells is contained in ONE row, so a
+# trilinear lookup is one contiguous row gather instead of 8 scattered
+# taps, and the in-brick weights are one-hot reductions. This is the
+# array-program analogue of the reference's cache-friendly volume bricking
+# (volcache.cpp).
 # ---------------------------------------------------------------------------
 _BX, _BY, _BZ = 8, 4, 4          # brick payload (x, y, z)
 _UX, _UY, _UZ = 7, 3, 3          # usable cells per brick (payload - 1 apron)
@@ -115,80 +114,13 @@ def build_brick_map(nz: int, ny: int, nx: int):
     return flat.reshape(nbz, nby, nbx, _BZ * _BY * _BX).astype(np.int32)
 
 
-def _trilinear_brick_kernel(brick_ref, lx_ref, ly_ref, lz_ref,
-                            tx_ref, ty_ref, tz_ref, out_ref):
-    """Pallas: fused trilinear weights + reduce over one (BLK, 128) brick
-    block. Replaces the XLA weight-expansion (3 full (N,128) f32 HBM passes
-    measured at ~2/3 of the tap cost) with in-VMEM compute.
-
-    The (BLK, 128)-wide weight build dominates the tap's VPU time, so it
-    runs in bfloat16 (2x VPU rate): the integer lattice compares are exact
-    and the fractions keep full bf16 precision (ulp <= 2^-8 on [0,1)), so
-    the interpolated density carries ~0.4% relative error; the reduce
-    accumulates in f32. Forward tracking only (gradient paths use the f32
-    XLA expansion)."""
-    brick = brick_ref[:]                           # (BLK, 128) bf16
-    blk = brick.shape[0]
-    bf = jnp.bfloat16
-    zero = jnp.zeros((), bf)
-    # weights as triangular hats relu(1 - |j - (l + t)|) — compare-free
-    # (Mosaic v5e supports neither i32-compare->bf16-select relayouts nor
-    # bf16 compares), built in f32 (exact), with only the 128-wide
-    # brick product in bf16
-    j = jax.lax.broadcasted_iota(jnp.int32, (blk, 128), 1)
-    jz = (j >> 5).astype(jnp.float32)
-    jy = ((j >> 3) & 3).astype(jnp.float32)
-    jx = (j & 7).astype(jnp.float32)
-    xf = lx_ref[:][:, None].astype(jnp.float32) + tx_ref[:][:, None]
-    yf = ly_ref[:][:, None].astype(jnp.float32) + ty_ref[:][:, None]
-    zf = lz_ref[:][:, None].astype(jnp.float32) + tz_ref[:][:, None]
-    wx = jnp.maximum(1.0 - jnp.abs(jx - xf), 0.0)
-    wy = jnp.maximum(1.0 - jnp.abs(jy - yf), 0.0)
-    wz = jnp.maximum(1.0 - jnp.abs(jz - zf), 0.0)
-    w = (wx * wy * wz).astype(bf)
-    del zero
-    prod = (brick * w).astype(jnp.float32)
-    out_ref[:] = jnp.sum(prod, axis=1, keepdims=True)
-
-
-def _trilinear_from_bricks_pallas(brick, lx, ly, lz, t):
-    """brick: (N, 128) gathered rows; l*: (N,) int32; t: (N, 3) fractions."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n = brick.shape[0]
-    BLK = 2048
-    pad = (-n) % BLK
-    if pad:
-        brick = jnp.pad(brick, ((0, pad), (0, 0)))
-        lx, ly, lz = (jnp.pad(a, (0, pad)) for a in (lx, ly, lz))
-        t = jnp.pad(t, ((0, pad), (0, 0)))
-    np_ = brick.shape[0]
-    out = pl.pallas_call(
-        _trilinear_brick_kernel,
-        grid=(np_ // BLK,),
-        out_shape=jax.ShapeDtypeStruct((np_, 1), jnp.float32),
-        in_specs=[
-            pl.BlockSpec((BLK, 128), lambda b: (b, 0)),
-            pl.BlockSpec((BLK,), lambda b: (b,)),
-            pl.BlockSpec((BLK,), lambda b: (b,)),
-            pl.BlockSpec((BLK,), lambda b: (b,)),
-            pl.BlockSpec((BLK,), lambda b: (b,)),
-            pl.BlockSpec((BLK,), lambda b: (b,)),
-            pl.BlockSpec((BLK,), lambda b: (b,)),
-        ],
-        out_specs=pl.BlockSpec((BLK, 1), lambda b: (b, 0)),
-    )(brick, lx, ly, lz, t[:, 0], t[:, 1], t[:, 2])
-    return out[:n, 0]
-
-
 class DensityBricks:
     """Per-render-pass cache: bricks gathered from the (possibly
     gradient-attached) density grid."""
 
     def __init__(self, media: Media, dtype=None):
         """dtype: optional storage dtype for the brick table (e.g. bfloat16
-        halves gather/VPU traffic in forward-only tracking; keep the f32
+        halves gather traffic in forward-only tracking; keep the f32
         default wherever density gradients flow)."""
         d = media.density.data
         if d.ndim == 4:
@@ -203,15 +135,9 @@ class DensityBricks:
         self.aabb_min = media.density.aabb_min
         self.aabb_max = media.density.aabb_max
 
-    def lookup(self, p, fused: bool | None = None):
-        """Trilinear density at world points p (N, 3): ONE row-gather + VPU.
-
-        fused=True routes the post-gather weights through the Pallas kernel
-        above (default on TPU: the XLA expansion materializes ~3 full
-        (N,128) f32 HBM passes, ~2/3 of measured tap cost); fused=False uses
-        the pure-XLA small-vector expansion (CPU tests, gradient paths)."""
-        if fused is None:
-            fused = jax.default_backend() == "tpu"
+    def lookup(self, p):
+        """Trilinear density at world points p (N, 3): ONE row-gather plus
+        an elementwise weight build and reduction that XLA fuses."""
         nz, ny, nx = self.res
         nbz, nby, nbx = self.nb
         res = jnp.array([nx, ny, nz], jnp.float32)
@@ -230,11 +156,6 @@ class DensityBricks:
         ly = cy - by * _UY
         lz = cz - bz * _UZ
         brick = jnp.take(self.bricks, (bz * nby + by) * nbx + bx, axis=0)  # (N,128)
-
-        if fused:
-            val = _trilinear_from_bricks_pallas(brick, lx, ly, lz, t)
-            return jnp.where(inside, val, 0.0)
-
         tx = t[..., 0:1]
         ty = t[..., 1:2]
         tz = t[..., 2:3]
@@ -253,17 +174,15 @@ class DensityBricks:
 
 
 class MacroMajorant:
-    """Quantized macro-cell majorant grid, register/SMEM-resident.
+    """Quantized macro-cell majorant grid, held in registers.
 
     Regular tracking with a spatially varying majorant (supervoxel / DDA
     tracking; the residual-tracking literature's 'local majorant') needs a
-    per-cell majorant lookup at full wavefront width. Measured TPU per-row
-    gather cost is ~6-9 ns/row regardless of table size, which would make
-    every lookup as expensive as the density tap it is meant to save. So the
-    M^3 cell maxima are quantized to 4 levels (global max x {1, 1/4, 1/16,
+    per-cell majorant lookup at full wavefront width. A gather per lookup
+    would cost as much as the density tap it is meant to save, so the M^3
+    cell maxima are quantized to 4 levels (global max x {1, 1/4, 1/16,
     1/64}) and packed 2 bits/cell into ceil(M^3/16) uint32 words; a lookup
-    is a word select-chain + bit extraction — pure VPU (~10 us at 262k lanes
-    for M=8), ~1% of a density tap.
+    is a word select-chain + bit extraction — pure elementwise arithmetic.
 
     The reference tracks against the single global grid maximum
     (heterogeneous.cpp getMaximumFloatValue / Woodcock at :420); on smooth
@@ -550,8 +469,8 @@ def sample_distance_woodcock(media: Media, sigma_a, sigma_s, scale, o, d,
         jnp.maximum(media.majorant * jnp.max(st_color, axis=-1), 1e-6)
     )
 
-    UNROLL = 4  # collision tests per loop iteration: amortizes the TPU
-    #               while_loop per-iteration overhead over 8 VPU steps
+    UNROLL = 4  # collision tests per loop iteration: amortizes the
+    #               while_loop per-iteration overhead
 
     def cond(state):
         running = state[2]
@@ -561,8 +480,12 @@ def sample_distance_woodcock(media: Media, sigma_a, sigma_s, scale, o, d,
     def body(state):
         t, hit, running, s, w, log_p, it = state
         for _ in range(UNROLL):
-            u1, s = rng.next_1d(s)
-            u2, s = rng.next_1d(s)
+            u1, s1 = rng.next_1d(s)
+            u2, s1 = rng.next_1d(s1)
+            # only lanes still tracking consume their stream, so a lane's
+            # later draws do not depend on how long the rest of the batch
+            # keeps this loop alive (sharded == unsharded renders)
+            s = s._replace(dim=jnp.where(running, s1.dim, s.dim))
             t_new = t - jnp.log1p(-u1) / majorant
             escaped = t_new >= t_max
             p = o + jax.lax.stop_gradient(t_new)[..., None] * d
@@ -619,7 +542,7 @@ def transmittance_ratio_tracking(media: Media, sigma_a, sigma_s, scale, o, d,
         jnp.maximum(media.majorant * jnp.max(st_color, axis=-1), 1e-6)
     )
 
-    UNROLL = 4  # collision tests per loop iteration (TPU loop overhead)
+    UNROLL = 4  # collision tests per loop iteration (loop overhead)
 
     def cond(state):
         _, _, running, _, it = state
@@ -628,7 +551,8 @@ def transmittance_ratio_tracking(media: Media, sigma_a, sigma_s, scale, o, d,
     def body(state):
         t, tr, running, s, it = state
         for _ in range(UNROLL):
-            u1, s = rng.next_1d(s)
+            u1, s1 = rng.next_1d(s)
+            s = s._replace(dim=jnp.where(running, s1.dim, s.dim))
             t_new = t - jnp.log1p(-u1) / majorant
             escaped = t_new >= t_max
             p = o + t_new[..., None] * d

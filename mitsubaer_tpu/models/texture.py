@@ -3,9 +3,9 @@
 Textures modulate BSDF reflectance per hit point: integrators look up
 `scene.bsdfs.texture[b_idx]` and multiply the result into the reflectance via
 the `refl_scale` argument of models/bsdf.py. Procedural textures
-(checkerboard.cpp, gridtexture.cpp, wireframe.cpp) are pure VPU arithmetic;
+(checkerboard.cpp, gridtexture.cpp, wireframe.cpp) are pure elementwise arithmetic;
 bitmap.cpp becomes a bilinear row-gather into the scene's shared image
-(MIP mapping omitted: TPU renders supersample instead of prefiltering).
+(MIP mapping omitted: renders supersample instead of prefiltering).
 """
 from __future__ import annotations
 

@@ -72,7 +72,7 @@ def sample_path_length(cfg: RenderConfig, u, n_bins: int = 256):
     """Importance-sample a target optical path length with density
     proportional to |R(t)| on [min_bound, max_bound]
     (pathlengthsampler.cpp sampleRestrictedPathLength — the reference's
-    rejection sampler becomes a tabulated inverse CDF, branchless on TPU).
+    rejection sampler becomes a tabulated inverse CDF, branchless).
 
     Returns (t, pdf). Degenerates to uniform when no modulation is set."""
     lo = jnp.float32(cfg.min_bound)

@@ -1,6 +1,6 @@
 // Native runtime support library for mitsubaer_tpu.
 //
-// TPU-native analogue of the reference's C++ data-loading layer:
+// Array-program analogue of the reference's C++ data-loading layer:
 // OBJ/PLY mesh parsing (src/shapes/{obj,ply}.cpp) and Mitsuba VOL3 grid
 // loading (src/volume/gridvolume.cpp incl. its mmap usage, libcore/mmap.cpp).
 // Python binds via ctypes (mitsubaer_tpu/native/__init__.py); the pure-Python

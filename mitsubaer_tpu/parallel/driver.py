@@ -5,7 +5,8 @@ Replaces the reference's distributed render farm (Scheduler + RemoteWorker
 over TCP/SSH, sched.cpp / sched_remote.cpp / mtssrv.cpp): instead of
 serialized WorkUnits there is ONE jitted SPMD program — ray wavefronts are
 sharded over the mesh, every device renders its shard, and the tiny film /
-voxel-gradient reductions ride ICI collectives (psum). Resources (scene
+voxel-gradient reductions ride collectives (psum, which XLA hands to NCCL
+over NVLink between the GPUs of a host). Resources (scene
 constants, voxel grids) are replicated, the analogue of the reference's
 per-node resource broadcast (sched_remote.cpp registerResource).
 
@@ -16,7 +17,9 @@ Mesh axes:
 Both multiply to pure ray-parallelism; the film psum (data axis) and gradient
 psum (both axes) are the only communication, overlapping XLA's backward
 schedule. Multi-host: jax.distributed.initialize() then the same code — the
-mesh simply spans hosts (DCN between hosts, ICI within).
+mesh simply spans hosts (NCCL over the network between hosts, NVLink
+within). NVLink joins a host's GPUs all to all, so the flat (data, tile)
+mesh needs no topology-aware layout.
 """
 from __future__ import annotations
 

@@ -234,7 +234,7 @@ class SceneBuilder:
         prototype replicated under per-instance transforms. The reference
         nests a second kd-tree per shapegroup (two-level hierarchy); here
         instances flatten into the global buffer — the single-level BVH
-        over the flattened soup is the TPU-friendly trade (no per-lane
+        over the flattened soup is the accelerator-friendly trade (no per-lane
         transform indirection in the traversal inner loop) at the cost of
         duplicated vertex storage. Returns the per-instance shape ids."""
         return [self.add_mesh(verts, faces, to_world=m, **kw)
@@ -402,6 +402,8 @@ class SceneBuilder:
                 m.strategy != T.STRAT_BALANCE for m in self._media),
             phase_kinds=tuple(sorted({m.phase_kind for m in self._media}))
             or (T.PH_ISOTROPIC,),
+            rif_kinds=tuple(sorted({m.rif_kind for m in self._media
+                                    if m.kind == T.MED_REFRACTIVE})),
             phase_orient=any(m.orientation is not None for m in self._media),
             sensor_kind=int((self._sensor or {}).get(
                 "kind", T.SENSOR_PERSPECTIVE)),

@@ -1,6 +1,6 @@
 """Flattened BVH for triangle meshes, wavefront-traversed.
 
-TPU-native replacement for the reference's SAH kd-tree
+Array-program replacement for the reference's SAH kd-tree
 (include/mitsuba/render/skdtree.h:69, gkdtree.h): pointer-chased recursive
 traversal is the wrong shape for a vector machine, so the tree is flattened
 depth-first with SKIP LINKS (miss pointers) and traversed stacklessly by a

@@ -1,6 +1,6 @@
 """Ray-scene intersection.
 
-TPU-native replacement for the reference's SAH kd-tree + SSE packet traversal
+Array-program replacement for the reference's SAH kd-tree + SSE packet traversal
 (include/mitsuba/render/{skdtree.h,gkdtree.h}, triaccel_sse.h). Pointer-based
 tree traversal is the wrong shape for a vector machine; instead we evaluate
 Moller-Trumbore for a whole ray wavefront against triangle chunks and keep a
@@ -107,9 +107,10 @@ def _tri_unrolled_hit(geo: Geometry, o, d):
 
     Fully component-wise over (N,) lane arrays — no jnp.cross / stack /
     dot_general, whose stacked (N,3) intermediates defeat XLA elementwise
-    fusion and turn a 12-triangle test into ~0.7 ms of HBM round-trips at
+    fusion and turn a 12-triangle test into device-memory round trips at
     wavefront width. With scalar triangle constants folded in, the whole
-    loop fuses into one VPU kernel (bandwidth: read o,d + write 4 arrays)."""
+    loop fuses into one elementwise kernel (bandwidth: read o,d + write 4
+    arrays)."""
     import os
     if os.environ.get("WF_ISECT") == "vector":
         return _tri_unrolled_hit_vec(geo, o, d)

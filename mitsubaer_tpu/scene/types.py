@@ -1,6 +1,6 @@
 """Scene representation: flat pytrees of arrays.
 
-TPU-native redesign of the reference's object graph (Scene/Shape/BSDF/...
+Array-program redesign of the reference's object graph (Scene/Shape/BSDF/...
 ref-counted C++ objects, include/mitsuba/render/scene.h:49): the whole scene
 is a pytree of dense arrays indexed by integer ids, so one jitted program
 renders any scene of the same "shape class" and all per-type dispatch is
@@ -322,10 +322,6 @@ class RenderConfig(NamedTuple):
     #   scripts/er_h_study.py) while the solver's sequential depth drops
     #   by s — the restart/Zeltner machinery already tolerates imperfect
     #   solves by construction
-    er_host_stepped: bool = False  # drive the ER bounce loop from the host
-    #   (one jitted program per bounce): keeps each TPU program under the
-    #   long-running-kernel watchdog so wide ER wavefronts are legal
-    #   (single-program renders crash the worker beyond ~8k lanes)
     er_f64: bool = False         # run the eikonal ODE/BVP core in float64
     #   (reference compiles eikonal math double via FLOATDEBUG, fwd.h:174;
     #   needs jax x64 enabled — CPU validation / high-accuracy renders)
@@ -345,11 +341,9 @@ class RenderConfig(NamedTuple):
     #   (r5 rework). 0 = full-width; >0 enables a width LADDER: each
     #   tracking pass packs the active lanes (sort + row gather), runs
     #   wf_compact_k jumps at the smallest ladder width that fits the
-    #   active count, and scatters the packed outcomes back (~11 ns/row
-    #   measured — scripts/probe_scatter_r5.py overturned the r3 5-10x
-    #   scatter-cost assumption that kept this off)
+    #   active count, and scatters the packed outcomes back
     wf_compact_k: int = 8        # majorant jumps per compacted tracking
-    #   pass (packed slots are ~4x cheaper than full-width slots, so the
+    #   pass (packed slots are cheaper than full-width slots, so the
     #   compacted pass runs more jumps and resolves most lanes in one go)
     wf_mini_passes: int = 1      # wavefront engine: cheap transition passes
     #   per super-iteration (null crossings / env escapes / flush+regen
@@ -375,23 +369,15 @@ class RenderConfig(NamedTuple):
     #   full width — so off by default in the full-width engine
     wf_dda_hops: int = 2         # tap-free macro-cell boundary hops absorbed
     #   per tracking slot
-    wf_track_mega: int = -1      # Pallas tracking megapass (-1 auto: on for
-    #   TPU when the padded voxel grid fits VMEM (<=2M voxels), 0 off,
-    #   1 forced on). Stochastic-trilinear taps fetched by one-hot MXU
-    #   matmul against a VMEM-resident brick table; each (8,128)-aligned
-    #   lane block loops majorant jumps until its OWN lanes resolve
-    #   (integrators/megatrack.py — ~3 ns/lane-trip vs 6.5-7.2 for the
-    #   full-width XLA slot)
-    wf_mega_trips: int = 6       # megapass per-call trip cap (leftover
-    #   lanes continue in the next super-iteration). Swept on the TPU bench
-    #   (scripts r5): 4->16.3, 6->17.0, 8->16.1, 32->10.8 Mrays/s — large
-    #   caps pay the per-block MAX trip count (active lanes spread across
-    #   every block), small caps amortize the tail across super-iterations
-    wf_mega_block: int = 1024    # megapass lanes per grid block
+    rif_kinds: tuple = ()        # static set of refractive-index kinds in
+    #   the scene; the eikonal code compiles only these (() = all)
     phase_kinds: tuple = ()      # static set of phase kinds in the scene
     phase_orient: bool = False   # static: a medium carries a per-voxel
     #   orientation field (microflake/kkay local axes)
     sensor_kind: int = -1        # static sensor kind (-1 = compile all)
+    kernels: str = "auto"        # hand-written kernels (core/kernels.py):
+    #   auto = Pallas/Triton kernels on a GPU, plain XLA elsewhere; xla =
+    #   never; triton = always (raises off the GPU)
 
     @property
     def n_frames(self) -> int:

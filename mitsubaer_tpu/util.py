@@ -2,7 +2,7 @@
 
 Reference: src/mtsutil/mtsutil.cpp:73 front end with the utility plugins in
 src/utils/: tonemap.cpp, addimages.cpp, joinrgb.cpp. (kdbench has no
-analogue: the TPU build has no kd-tree; `bench.py` is the perf harness.)
+analogue: this framework has no kd-tree; `bench.py` is the perf harness.)
 
     python -m mitsubaer_tpu.util tonemap in.exr -o out.png [--exposure 2]
     python -m mitsubaer_tpu.util addimages a.exr b.exr -o sum.exr -w 0.5,0.5

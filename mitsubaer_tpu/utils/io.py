@@ -324,15 +324,29 @@ def write_npy(path, image):
     np.save(path, np.asarray(image))
 
 
-def write_png(path, image, gamma=True):
-    """Tonemapped 8-bit PNG via PIL (ldrfilm analogue)."""
-    from PIL import Image
+def _png_chunk(typ: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + typ + data
+            + struct.pack(">I", zlib.crc32(typ + data) & 0xFFFFFFFF))
 
+
+def write_png(path, image, gamma=True):
+    """Tonemapped 8-bit RGB PNG (ldrfilm analogue), encoded with zlib:
+    one IDAT chunk of unfiltered scanlines."""
     img = np.asarray(image, np.float32)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=-1)
+    img = img[..., :3]
     if gamma:
         img = np.where(img <= 0.0031308, img * 12.92, 1.055 * np.maximum(img, 1e-8) ** (1 / 2.4) - 0.055)
     img8 = (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
-    Image.fromarray(img8).save(path)
+    h, w, _ = img8.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img8.reshape(h, w * 3)],
+                         axis=1).tobytes()           # filter byte 0 per row
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(_png_chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(_png_chunk(b"IEND", b""))
 
 
 def read_image(path):

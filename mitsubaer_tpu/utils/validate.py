@@ -2,7 +2,7 @@
 
 The reference repo has no image-regression tests (SURVEY.md section 4); its
 statistical chi^2 harness (test_chisquare.cpp) checks sample()/pdf()
-consistency. For volumetric transport we can do better on TPU: a
+consistency. For volumetric transport we can do better: a
 deterministic single-scatter quadrature that both engines (loop + wavefront)
 must converge to. Used by tests/test_wavefront.py and
 scripts/quadrature_ref.py.

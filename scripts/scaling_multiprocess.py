@@ -14,9 +14,9 @@ scene SPMD over the global (data x tile) mesh, and
 Usage:  python scripts/scaling_multiprocess.py            # parent: runs N=1,2,4
         (children are spawned automatically with --child)
 
-Caveat: this host has 2 physical cores, so wall-clock efficiency at N>=2 is
-bounded by oversubscription, not by the communication pattern; on real
-multi-host TPU the same program spans hosts via DCN (parallel/driver.py).
+Caveat: on a host with few cores, wall-clock efficiency at N>=2 is bounded
+by oversubscription, not by the communication pattern; across hosts the
+same program spans them via jax.distributed (parallel/driver.py).
 """
 import json
 import os

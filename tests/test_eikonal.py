@@ -396,3 +396,25 @@ class TestAcousticModes:
         v4, _, _ = ek._rif_analytic(kind, prm4, p, False)
         v4 = np.asarray(v4)
         assert np.allclose(v4, np.roll(v4, -16), atol=2e-5)
+
+
+@pytest.mark.parametrize("kind,prm", [
+    (ek.RIF_LINEAR, [1.3, 0.15, 0.05, -0.1, 0, 0, 0, 0]),
+    (ek.RIF_RADIAL, [1.2, 0.4, 0.6, 0.1, -0.1, 0.0, 0, 0]),
+])
+def test_static_rif_kinds_match_all_kinds(kind, prm):
+    """RifField.kinds compiles only the scene's RIF kinds: the result for a
+    field of that kind is the all-kinds result, and the builder records the
+    scene's kind in RenderConfig.rif_kinds."""
+    from mitsubaer_tpu.scene import presets
+
+    scene, cfg = presets.refractive_sphere(res=4, spp=1, rif_kind=kind,
+                                           rif_params=tuple(prm))
+    assert cfg.rif_kinds == (kind,)
+    p = jnp.asarray(np.random.default_rng(0).uniform(-0.5, 0.5, (16, 3)),
+                    jnp.float32)
+    full = ek.rif_value_grad_hess(ek.rif_from_media(scene.media), p)
+    only = ek.rif_value_grad_hess(
+        ek.rif_from_media(scene.media, cfg.rif_kinds), p)
+    for a, b in zip(full, only):
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a), rtol=1e-6)

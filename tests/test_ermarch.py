@@ -1,9 +1,9 @@
 """ER march kernels (models/ermarch.py) must reproduce the XLA loops
 step for step (same math, same stop logic) for every analytic RIF kind.
-Run in interpreter mode on CPU; the TPU render path switches to these
-kernels via the gate in eikonal.trace_curved /
-integrate_with_sensitivities (measured 15x on the bench ER config —
-the XLA while_loop pays per-step dispatch, the kernel does not)."""
+The Triton-route kernels run here in the Pallas interpreter; on a GPU the
+render path switches to them via the gate in eikonal.trace_curved /
+integrate_with_sensitivities (core/kernels.py picks the route), and
+tests/test_chip.py checks them as compiled for the card."""
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -100,12 +100,15 @@ def test_direct_lighting_quadrature_cbox_floor():
 
 
 def test_reference_scene_snapshots():
-    """Frozen low-res means of the two bundled reference scene XMLs: not
-    external truth, but catches silent drift in the XML->scene->render
-    pipeline on the reference's own inputs."""
+    """The bundled Cornell-box XML (tests/data/cbox.xml) through the
+    XML->scene->render pipeline: not external truth, but catches silent
+    drift in the loader and the path tracer on a Mitsuba-format input."""
+    import os
+
     from mitsubaer_tpu.scene import xml as xml_m
 
-    scene, cfg = xml_m.load_scene("/root/reference/scenes/cbox/cbox.xml")
+    scene, cfg = xml_m.load_scene(os.path.join(
+        os.path.dirname(__file__), "data", "cbox.xml"))
     cfg = cfg._replace(width=32, height=32, spp=32, integrator="path",
                        max_depth=6, decomposition="steadystate")
     img = np.asarray(rm.render(scene, cfg, seed=0))

@@ -144,3 +144,37 @@ def test_rgbe_rle_decode(tmp_path):
     np.testing.assert_allclose(img[0], expect0)
     expect1 = (row_var[:, :3].astype(np.float32) + 0.5) * 2.0 ** (129 - 136)
     np.testing.assert_allclose(img[1], expect1)
+
+
+def test_png_roundtrip_header_and_crc(tmp_path):
+    """write_png emits a valid PNG: signature, IHDR fields, a CRC-32 over
+    every chunk, and pixels that read back exactly (gamma off)."""
+    import struct
+    import zlib
+
+    from mitsubaer_tpu.utils import io as mio
+
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 256, (5, 7, 3)).astype(np.float32) / 255.0
+    path = tmp_path / "a.png"
+    mio.write_png(path, img, gamma=False)
+    data = path.read_bytes()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, types, idat = 8, [], b""
+    while pos < len(data):
+        (ln,) = struct.unpack(">I", data[pos:pos + 4])
+        typ, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + ln]
+        (crc,) = struct.unpack(">I", data[pos + 8 + ln:pos + 12 + ln])
+        assert crc == zlib.crc32(typ + body) & 0xFFFFFFFF, typ
+        if typ == b"IHDR":
+            assert struct.unpack(">IIBBBBB", body) == (7, 5, 8, 2, 0, 0, 0)
+        if typ == b"IDAT":
+            idat += body
+        types.append(typ)
+        pos += 12 + ln
+    assert types[0] == b"IHDR" and types[-1] == b"IEND" and b"IDAT" in types
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(5, 1 + 21)
+    assert (rows[:, 0] == 0).all()                  # filter type None
+    np.testing.assert_array_equal(rows[:, 1:].reshape(5, 7, 3),
+                                  np.round(img * 255).astype(np.uint8))
+    assert mio.read_image(path).shape == (5, 7, 3)
